@@ -3,22 +3,20 @@
 Runs every mode against the embedded known answers and prints
 PASSED/FAILED per mode, mirroring main.c:108-113's check() output.
 
-    python examples/demo.py          # CPU (default here)
-    python examples/demo.py --tpu    # whatever backend the env provides
+    python examples/demo.py          # whatever device JAX finds
+    python examples/demo.py --cpu    # force the CPU
+
+chip_smoke.py imports main() and runs it in its own process.
 """
+import os
 import sys
 
-sys.path.insert(0, __file__.rsplit("/", 2)[0])
-
-if "--tpu" not in sys.argv:
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    import micro_aes_tpu as aes
-    from micro_aes_tpu.testing import kat
+    import micro_aes as aes
+    from micro_aes.testing import kat
 
     key128, key256 = kat.CIPHER_KEY[:16], kat.CIPHER_KEY
     iv, aad, pt = kat.IVEC, kat.AAD, kat.PLAINTEXT
@@ -62,4 +60,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--cpu" in sys.argv:
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
     raise SystemExit(main())

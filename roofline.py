@@ -1,55 +1,62 @@
-"""VPU roofline model for the bitsliced AES kernels (VERDICT r3 item 6).
+"""Roofline model of the bitsliced AES engines on the card JAX reports.
 
-Counts the exact per-byte VPU work of the in-kernel compute bodies by
-tracing them to jaxprs and tallying every primitive's output elements,
-then divides the v5e VPU's theoretical element-op throughput by that
-ops/byte figure to get a speed-of-light GB/s for each engine.  Run:
+Counts the exact per-byte work of each engine by tracing it to a jaxpr
+and tallying every primitive's output elements (recursing into scans and
+into the Pallas kernel's body, times its grid), then divides the card's
+peak rates by those per-byte figures to get a speed of light for each
+engine.  Run on the machine with the card:
 
-    python roofline.py [--measured gcm=27.3e9 cipher=29.2e9 ...]
+    python roofline.py [--measured 2=5.6e10 ...]   # row index or name prefix
+    python roofline.py --device-kind "NVIDIA H100 80GB HBM3"   # anywhere
 
-The counting is mechanical (no hand gate-count): whatever circuit is in
-the code is what gets counted, so it stays honest as kernels change.
-
-v5e VPU model (estimates marked *):
-  - one TensorCore per chip; VPU shape (8 sublanes, 128 lanes), 4
-    independent 32-bit ALUs per position -> 4096 elementwise u32
-    ops/cycle (jax-ml.github.io/scaling-book, "TPUs" chapter).
-  - clock* ~1.5 GHz, back-derived from the published 197 bf16
-    TFLOP/s/chip peak = 2 FLOP x 4 MXUs x 128x128 x clock.
-  - => ~6.1e12 u32 element-ops/s.  Cross-chip figures (HBM 819 GB/s)
-    bound the streaming side; at ~2 bytes moved per byte processed the
-    HBM roofline (~410 GB/s) is far above the VPU one, so the ALU bound
-    is the binding one for this circuit.
-
-Caveats stated in BASELINE.md: rolls/concats are counted as 1 op per
-element (they execute as VPU shifts/copies but may issue on different
-ports), and the model ignores load/store and loop overheads — it is an
-upper bound, the "100%" line no real kernel reaches.
+The counting is mechanical, so it follows the code as it changes.  An
+integer op here is one 2-input elementwise operation; Hopper's LOP3
+instruction can fold up to three of the bitsliced circuit's logic ops
+into one, so a kernel may beat this ALU bound by up to that factor —
+the model is a yardstick, not a ceiling.  It ignores loads, stores and
+loop overhead.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
-import math
 
 import numpy as np
 
-# elementwise primitives that occupy a VPU ALU slot per output element
+# Peaks by jax.Device.device_kind.  A device not in this table is an error.
+PEAKS = {
+    # H100 SXM5, 700 W.  HBM and int8 tensor rates: NVIDIA H100 data sheet
+    # (3.35 TB/s; 1,979 dense int8 TOPS = 989.5e12 MAC/s).  Integer ALU:
+    # CUDA C++ Programming Guide, arithmetic-instruction throughput table,
+    # compute capability 9.0: 64 results/clock/SM for 32-bit bitwise
+    # AND/OR/XOR and for 32-bit add/shift, x 132 SMs x 1.98 GHz boost.
+    "NVIDIA H100 80GB HBM3": {
+        "int32_ops_per_s": 64 * 132 * 1.98e9,
+        "int8_macs_per_s": 989.5e12,
+        "hbm_bytes_per_s": 3.35e12,
+        "source": "NVIDIA H100 data sheet (SXM5); CUDA C++ Programming "
+                  "Guide, throughput table, cc 9.0, x 132 SMs x 1.98 GHz",
+    },
+}
+
+# elementwise primitives that take an integer ALU slot per output element
 _ALU = {
     "xor", "and", "or", "not", "add", "sub", "mul", "shift_left",
     "shift_right_logical", "shift_right_arithmetic", "select_n", "eq",
     "ne", "lt", "le", "gt", "ge", "max", "min", "rem", "div",
     "convert_element_type", "integer_pow", "floor", "sign",
 }
-# data-movement primitives (copies/permutes; also ~1 element/cycle/lane
-# on the VPU, but on the store path — counted separately)
+# data movement (copies, permutes, loads/stores inside a kernel)
 _MOVE = {
-    "tpu_roll", "roll", "concatenate", "slice", "dynamic_slice", "pad",
-    "gather", "reshape", "transpose", "broadcast_in_dim", "rev",
-    "dynamic_update_slice", "squeeze", "iota", "copy",
+    "roll", "concatenate", "slice", "dynamic_slice", "pad", "gather",
+    "reshape", "transpose", "broadcast_in_dim", "rev", "dynamic_update_slice",
+    "squeeze", "iota", "copy", "get", "swap", "load", "masked_load",
+    "masked_swap",
 }
-_MXU = {"dot_general"}
-_FREE = {"constant", "stop_gradient", "bitcast_convert_type"}
+_MATMUL = {"dot_general"}
+_FREE = {"constant", "stop_gradient", "bitcast_convert_type",
+         "program_id"}
 
 
 def _elems(aval) -> int:
@@ -58,25 +65,30 @@ def _elems(aval) -> int:
 
 def count_jaxpr(jaxpr, mult: int = 1, counts=None):
     """Tally output elements per primitive category, recursing into
-    control-flow bodies (scan x length, while x 1 — chains carry their
-    trip count in the grid, not the body)."""
+    control flow (scan x length, while x 1) and Pallas kernels (body x
+    grid size)."""
     if counts is None:
-        counts = {"alu": 0, "move": 0, "mxu_macs": 0, "other": {}}
+        counts = {"alu": 0, "move": 0, "macs": 0, "other": {}}
     for eqn in jaxpr.eqns:
         prim = eqn.primitive.name
-        if prim in ("scan",):
-            n = eqn.params.get("length", 1)
-            count_jaxpr(eqn.params["jaxpr"].jaxpr, mult * n, counts)
+        if prim == "scan":
+            count_jaxpr(eqn.params["jaxpr"].jaxpr,
+                        mult * eqn.params.get("length", 1), counts)
             continue
-        if prim in ("while",):
+        if prim == "while":
             count_jaxpr(eqn.params["body_jaxpr"].jaxpr, mult, counts)
             continue
-        if prim in ("cond",):
+        if prim == "cond":
             count_jaxpr(eqn.params["branches"][0].jaxpr, mult, counts)
             continue
-        if prim in ("pjit", "closed_call", "custom_jvp_call",
+        if prim == "pallas_call":
+            grid = eqn.params["grid_mapping"].grid
+            count_jaxpr(eqn.params["jaxpr"], mult * int(np.prod(grid)),
+                        counts)
+            continue
+        if prim in ("pjit", "jit", "closed_call", "custom_jvp_call",
                     "custom_vjp_call", "remat"):
-            inner = eqn.params.get("jaxpr")
+            inner = eqn.params.get("jaxpr") or eqn.params.get("call_jaxpr")
             if inner is not None:
                 count_jaxpr(getattr(inner, "jaxpr", inner), mult, counts)
             continue
@@ -85,295 +97,119 @@ def count_jaxpr(jaxpr, mult: int = 1, counts=None):
             counts["alu"] += mult * out
         elif prim in _MOVE:
             counts["move"] += mult * out
-        elif prim in _MXU:
-            # MACs = product of contraction dims x output elements
+        elif prim in _MATMUL:
             (lhs, _), _ = eqn.params["dimension_numbers"]
             lshape = eqn.invars[0].aval.shape
             k = int(np.prod([int(lshape[d]) for d in lhs])) or 1
-            counts["mxu_macs"] += mult * out * k
-        elif prim in _FREE:
-            pass
-        else:
-            counts["other"][prim] = counts["other"].get(prim, 0) \
-                + mult * out
+            counts["macs"] += mult * out * k
+        elif prim not in _FREE:
+            counts["other"][prim] = counts["other"].get(prim, 0) + mult * out
     return counts
 
 
-def _trace_cipher(rounds: int, tile: int):
-    """ops for _cipher_rounds on one [16, tile] x 8-plane tile =
-    32 * tile blocks = 512 * tile bytes."""
-    import jax
+def _stream_args(rounds: int, w: int):
     import jax.numpy as jnp
 
-    from micro_aes_tpu.ops import pallas_seal as ps
-
-    kp = jnp.zeros(((rounds + 1) * 128, 1), jnp.uint32)
-    planes = [jnp.zeros((16, tile), jnp.uint32) for _ in range(8)]
-
-    def fn(kp, *planes):
-        return ps._cipher_rounds(rounds, kp, list(planes))
-
-    jx = jax.make_jaxpr(fn)(kp, *planes)
-    return count_jaxpr(jx.jaxpr), 512 * tile
+    return (jnp.zeros(((rounds + 1) * 128, 1), jnp.uint32),
+            jnp.zeros((128, 1), jnp.uint32), jnp.zeros((2, w), jnp.uint32),
+            jnp.zeros((w, 128), jnp.uint32))
 
 
-def _trace_xex_step(rounds: int, tile: int, decrypt: bool):
-    """ops for one OCB/XTS body grid step: _ctrw_math on a [128, tile]
-    stream (offset xor excluded — it is mode glue, identical both
-    directions)."""
+def _trace(fn, *args, **kw):
     import jax
+
+    return count_jaxpr(
+        jax.make_jaxpr(functools.partial(fn, **kw))(*args).jaxpr)
+
+
+def engine_counts(w: int):
+    """(name, counts, bytes) for each engine at W stream columns
+    (32*W blocks = 512*W bytes)."""
     import jax.numpy as jnp
 
-    from micro_aes_tpu.ops import pallas_seal as ps
+    from micro_aes.core.bitslice import encrypt_planes
+    from micro_aes.ops.ctr_kernel import ctr_fused_kernel
+    from micro_aes.ops.stream import (
+        ctr_fused_jnp,
+        ctrw_fused_jnp,
+        seal_fused_jnp,
+    )
 
-    kp = jnp.zeros(((rounds + 1) * 128, 1), jnp.uint32)
-    a = jnp.zeros((128, tile), jnp.uint32)
-    b = jnp.zeros((128, tile), jnp.uint32)
-
-    def fn(kp, a, b):
-        return ps._ctrw_math(rounds, kp, a, b, decrypt)
-
-    jx = jax.make_jaxpr(fn)(kp, a, b)
-    return count_jaxpr(jx.jaxpr), 512 * tile
-
-
-def _trace_seal_step(rounds: int, tile: int):
-    """ops for one fused GCM seal grid step (_seal_math: counters ->
-    cipher -> xor-stream butterflies -> level-1 GHASH)."""
-    import jax
-    import jax.numpy as jnp
-
-    from micro_aes_tpu.ops import pallas_seal as ps
-
-    kp = jnp.zeros(((rounds + 1) * 128, 1), jnp.uint32)
-    j0c = jnp.zeros((128, 1), jnp.uint32)
-    lohi = jnp.zeros((2, tile), jnp.uint32)
-    ghm = jnp.zeros((1, tile), jnp.uint32)
+    nbytes = 512 * w
+    kp14, j0c, lohi, x = _stream_args(14, w)
+    kp10 = jnp.zeros((11 * 128, 1), jnp.uint32)
+    ghm = jnp.zeros((1, w), jnp.uint32)
     w1t = jnp.zeros((128, 4096), jnp.int8)
-    x = jnp.zeros((128, tile), jnp.uint32)
-
-    def fn(kp, j0c, lohi, ghm, w1t, x):
-        return ps._seal_math(rounds, False, kp, j0c, lohi, ghm, w1t, x)
-
-    jx = jax.make_jaxpr(fn)(kp, j0c, lohi, ghm, w1t, x)
-    return count_jaxpr(jx.jaxpr), 512 * tile
-
-
-def _trace_chain_step(rounds: int, tile: int):
-    """ops for one CBC chain grid step (x-in butterfly, cipher,
-    out butterfly) over a [128, tile] stream tile."""
-    import jax
-    import jax.numpy as jnp
-
-    from micro_aes_tpu.ops import pallas_seal as ps
-
-    kpw = jnp.zeros(((rounds + 1) * 128, tile), jnp.uint32)
-    carry = [jnp.zeros((16, tile), jnp.uint32) for _ in range(8)]
-    x = jnp.zeros((128, tile), jnp.uint32)
-
-    def fn(kpw, x, *carry):
-        from micro_aes_tpu.ops import pallas_chain as pch
-
-        xp = ps._blocks_to_rm_planes(x)
-        out = pch._cipher_lanekeys(
-            rounds, kpw, [carry[b] ^ xp[b] for b in range(8)])
-        return ps._rm_planes_to_stream(out)
-
-    jx = jax.make_jaxpr(fn)(kpw, x, *carry)
-    return count_jaxpr(jx.jaxpr), 512 * tile
+    return [
+        ("AES-256 cipher (bitsliced planes, XLA)",
+         _trace(encrypt_planes, kp14.reshape(15, 8, 16),
+                jnp.zeros((8, 16, w), jnp.uint32)), nbytes),
+        ("AES-256 CTR keystream xor (XLA engine)",
+         _trace(ctr_fused_jnp, kp14, j0c, lohi, x), nbytes),
+        ("AES-256 CTR keystream xor (GPU kernel)",
+         _trace(ctr_fused_kernel, kp14, j0c, lohi, x), nbytes),
+        ("AES-256-GCM seal step (XLA engine, GHASH level 1 incl.)",
+         _trace(seal_fused_jnp, kp14, j0c, lohi, ghm, w1t, x), nbytes),
+        ("AES-128 XEX body seal (OCB/XTS, XLA)",
+         _trace(ctrw_fused_jnp, kp10, x, x), nbytes),
+        ("AES-128 XEX body open (inverse cipher, XLA)",
+         _trace(ctrw_fused_jnp, kp10, x, x, decrypt=True), nbytes),
+    ]
 
 
-def _trace_aead_step(rounds: int, tile: int):
-    """ops for one fused CTR+CBC-MAC grid step (r5 CCM/EAX kernel: in-
-    kernel BE counters -> cipher (keystream) -> xor-stream + masked
-    second cipher for the MAC carry)."""
-    import jax
-    import jax.numpy as jnp
-
-    from micro_aes_tpu.ops import pallas_chain as pch
-    from micro_aes_tpu.ops import pallas_seal as ps
-
-    kpw = jnp.zeros(((rounds + 1) * 128, tile), jnp.uint32)
-    c0 = jnp.zeros((128, tile), jnp.uint32)
-    x = jnp.zeros((128, tile), jnp.uint32)
-    tailp = jnp.zeros((128, tile), jnp.uint32)
-    lastp = jnp.zeros((128, tile), jnp.uint32)
-    mrow = jnp.zeros((1, tile), jnp.uint32)
-    lrow = jnp.zeros((1, tile), jnp.uint32)
-    carry = [jnp.zeros((16, tile), jnp.uint32) for _ in range(8)]
-    step = jnp.uint32(3)
-
-    def fn(kpw, c0, x, tailp, lastp, mrow, lrow, step, *carry):
-        ks = pch._cipher_lanekeys(
-            rounds, kpw,
-            pch._rows_to_rm_planes(pch._aead_ctr_rows(c0, step)))
-        xp = ps._blocks_to_rm_planes(x)
-        outp = [ks[b] ^ xp[b] for b in range(8)]
-        y = ps._rm_planes_to_stream(outp)
-        macin = []
-        for b in range(8):
-            tp = tailp[b * 16:(b + 1) * 16, :]
-            lp = lastp[b * 16:(b + 1) * 16, :]
-            fin = (xp[b] & tp) ^ lp
-            macin.append(xp[b] ^ (lrow & (xp[b] ^ fin)))
-        m2 = pch._cipher_lanekeys(
-            rounds, kpw, [carry[b] ^ macin[b] for b in range(8)])
-        nc = [carry[b] ^ (mrow & (m2[b] ^ carry[b])) for b in range(8)]
-        return y, nc
-
-    jx = jax.make_jaxpr(fn)(kpw, c0, x, tailp, lastp, mrow, lrow, step,
-                            *carry)
-    return count_jaxpr(jx.jaxpr), 512 * tile
-
-
-def _trace_gcm_chain_step(rounds: int, tile: int):
-    """ops for one value-chain multi-key GCM grid step (r5 continuation:
-    in-kernel BE counter -> cipher -> keystream xor + the value-domain
-    GHASH fold G = (G ^ C)*H as 128 masked xors against the per-lane
-    halving table)."""
-    import jax
-    import jax.numpy as jnp
-
-    from micro_aes_tpu.ops import pallas_chain as pch
-    from micro_aes_tpu.ops import pallas_seal as ps
-
-    kpw = jnp.zeros(((rounds + 1) * 128, tile), jnp.uint32)
-    c0 = jnp.zeros((128, tile), jnp.uint32)
-    x = jnp.zeros((128, tile), jnp.uint32)
-    tailp = jnp.zeros((128, tile), jnp.uint32)
-    ip = jnp.zeros((128, tile), jnp.uint32)
-    htab = jnp.zeros((16384, tile), jnp.uint32)
-    rows1 = jnp.zeros((1, tile), jnp.uint32)
-    carry = [jnp.zeros((32, tile), jnp.uint32) for _ in range(4)]
-    step = jnp.uint32(3)
-
-    def fn(kpw, c0, x, tailp, ip, htab, lm, fm, im, mrow, step, *carry):
-        ks = pch._cipher_lanekeys(
-            rounds, kpw,
-            pch._rows_to_rm_planes(pch._aead_ctr_rows(c0, step)))
-        xp = ps._blocks_to_rm_planes(x)
-        outp = [ks[b] ^ xp[b] for b in range(8)]
-        y = ps._rm_planes_to_stream(outp)
-        macp = []
-        for b in range(8):
-            tp = tailp[b * 16:(b + 1) * 16, :]
-            ipb = ip[b * 16:(b + 1) * 16, :]
-            fin = outp[b] & tp
-            macp.append(((outp[b] ^ (lm & (outp[b] ^ fin))) & fm)
-                        ^ (im & ipb))
-        rowsk = pch._rm_planes_to_wide_rows(macp)
-        xw = [jnp.concatenate(rowsk[k], axis=0) for k in range(4)]
-        prod = pch._mulH_words(
-            [carry[k] ^ xw[k] for k in range(4)], htab)
-        mrows = pch._lane_mask_rows(mrow)
-        nc = [carry[k] ^ (mrows & (prod[k] ^ carry[k])) for k in range(4)]
-        return y, nc
-
-    jx = jax.make_jaxpr(fn)(kpw, c0, x, tailp, ip, htab, rows1, rows1,
-                            rows1, rows1, step, *carry)
-    return count_jaxpr(jx.jaxpr), 512 * tile
-
-
-def _trace_kw_step(rounds: int, tile: int):
-    """ops for one KW wheel step (assemble A||R[i], cipher, split).
-    Normalization: a full wrap of n semiblocks runs 6n steps, touching
-    every semiblock SIX times — payload bytes per step = 8n/6n = 4/3
-    per lane, so this row's speed-of-light is directly comparable to
-    the batch engine's payload rate."""
-    import jax
-    import jax.numpy as jnp
-
-    from micro_aes_tpu.ops import pallas_chain as pch
-
-    kpw = jnp.zeros(((rounds + 1) * 128, tile), jnp.uint32)
-    x4 = jnp.zeros((4, 32 * tile), jnp.uint32)
-
-    def fn(kpw, x4):
-        p = pch._wide_to_rm_planes(x4, tile)
-        p = pch._cipher_lanekeys(rounds, kpw, p)
-        return pch._rm_planes_to_wide_rows(p)
-
-    jx = jax.make_jaxpr(fn)(kpw, x4)
-    return count_jaxpr(jx.jaxpr), 128 * tile // 3  # 4/3 B/lane/step
-
-
-VPU_OPS_PER_CYCLE = 8 * 128 * 4     # (8,128) positions x 4 ALUs
-CLOCK_GHZ = 1.5                     # derived: 197e12 / (2*4*128*128)
-VPU_OPS_PER_S = VPU_OPS_PER_CYCLE * CLOCK_GHZ * 1e9
-MXU_MACS_PER_S = 4 * 128 * 128 * CLOCK_GHZ * 1e9  # int8 path >= bf16
-HBM_GBPS = 819e9
-
-
-def roofline_row(name, counts, nbytes, measured=None):
+def roofline_row(name, counts, nbytes, peaks, measured=None):
     alu_pb = counts["alu"] / nbytes
-    move_pb = counts["move"] / nbytes
-    mxu_pb = counts["mxu_macs"] / nbytes
-    t_alu = alu_pb / VPU_OPS_PER_S            # s per byte, ALU issue
-    t_mxu = mxu_pb / MXU_MACS_PER_S if mxu_pb else 0.0
-    t_hbm = 2.0 / HBM_GBPS                    # in + out stream
-    sol = 1.0 / max(t_alu, t_mxu, t_hbm)
-    bound = ("VPU-ALU" if t_alu >= max(t_mxu, t_hbm)
-             else "MXU" if t_mxu >= t_hbm else "HBM")
+    mac_pb = counts["macs"] / nbytes
+    t_alu = alu_pb / peaks["int32_ops_per_s"]
+    t_mac = mac_pb / peaks["int8_macs_per_s"]
+    t_hbm = 2.0 / peaks["hbm_bytes_per_s"]          # stream in + out
+    sol = 1.0 / max(t_alu, t_mac, t_hbm)
+    bound = ("int32 ALU" if t_alu >= max(t_mac, t_hbm)
+             else "int8 tensor" if t_mac >= t_hbm else "HBM")
     row = {
         "engine": name,
         "alu_ops_per_byte": round(alu_pb, 2),
-        "move_ops_per_byte": round(move_pb, 2),
-        "mxu_macs_per_byte": round(mxu_pb, 2),
+        "move_ops_per_byte": round(counts["move"] / nbytes, 2),
+        "int8_macs_per_byte": round(mac_pb, 2),
         "other": counts["other"],
-        "speed_of_light_gbps": round(sol / 1e9, 1),
+        "speed_of_light_bytes_per_s": round(sol),
         "bound_by": bound,
     }
     if measured:
-        row["measured_gbps"] = round(measured / 1e9, 2)
-        row["fraction_of_roofline"] = round(measured / sol, 3)
+        row["measured_bytes_per_s"] = measured
+        row["fraction_of_roofline"] = round(measured / sol, 4)
     return row
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--device-kind", default=None,
+                    help="peaks to use (default: jax.devices()[0]'s kind)")
     ap.add_argument("--measured", nargs="*", default=[],
                     metavar="NAME=BYTES_PER_S",
-                    help="attach measured rates: cipher=2.9e10 gcm=2.7e10 "
-                         "chain=3.2e10")
-    ap.add_argument("--tile", type=int, default=512)
+                    help="attach measured rates by row index or name "
+                         "prefix, e.g. 2=3.1e11")
+    ap.add_argument("--w", type=int, default=1024,
+                    help="stream columns traced (32 blocks each)")
     args = ap.parse_args(argv)
-    measured = {}
-    for kv in args.measured:
-        k, v = kv.split("=")
-        measured[k] = float(v)
+    kind = args.device_kind
+    if kind is None:
+        import jax
 
+        kind = jax.devices()[0].device_kind
+    if kind not in PEAKS:
+        raise SystemExit(f"no peak rates for device kind {kind!r}; known: "
+                         f"{sorted(PEAKS)}")
+    peaks = PEAKS[kind]
+    measured = dict(kv.split("=") for kv in args.measured)
     rows = []
-    c, nb = _trace_cipher(14, args.tile)
-    rows.append(roofline_row("AES-256 cipher (bitsliced planes)", c, nb,
-                             measured.get("cipher")))
-    c, nb = _trace_seal_step(14, args.tile)
-    rows.append(roofline_row("AES-256-GCM fused seal step", c, nb,
-                             measured.get("gcm")))
-    c, nb = _trace_xex_step(10, args.tile, False)
-    rows.append(roofline_row("AES-128 XEX body seal (OCB/XTS)", c, nb,
-                             measured.get("ocb_seal")))
-    c, nb = _trace_xex_step(10, args.tile, True)
-    rows.append(roofline_row("AES-128 XEX body open (inverse cipher)",
-                             c, nb, measured.get("ocb_open")))
-    c, nb = _trace_chain_step(14, min(args.tile, 128))
-    rows.append(roofline_row("AES-256-CBC chain step", c, nb,
-                             measured.get("chain")))
-    c, nb = _trace_aead_step(10, min(args.tile, 128))
-    rows.append(roofline_row("AES-128 fused CTR+CBC-MAC step (CCM/EAX)",
-                             c, nb, measured.get("aead")))
-    c, nb = _trace_kw_step(10, min(args.tile, 128))
-    rows.append(roofline_row("AES-128 KW wheel step", c, nb,
-                             measured.get("kw")))
-    c, nb = _trace_gcm_chain_step(10, min(args.tile, 128))
-    rows.append(roofline_row(
-        "AES-128 value-chain multi-key GCM step (cipher + mulH fold)",
-        c, nb, measured.get("gcmchain")))
-    print(json.dumps({"model": {
-        "vpu_ops_per_s": VPU_OPS_PER_S,
-        "mxu_macs_per_s": MXU_MACS_PER_S,
-        "hbm_bytes_per_s": HBM_GBPS,
-        "clock_ghz_derived": CLOCK_GHZ,
-    }, "rows": rows}, indent=1))
+    for i, (name, counts, nbytes) in enumerate(engine_counts(args.w)):
+        m = measured.get(str(i)) or next(
+            (v for k, v in measured.items() if name.startswith(k)), None)
+        rows.append(roofline_row(name, counts, nbytes, peaks,
+                                 float(m) if m else None))
+    print(json.dumps({"device_kind": kind, "peaks": peaks, "rows": rows},
+                     indent=1))
 
 
 if __name__ == "__main__":

@@ -3,19 +3,19 @@ randomized differential checks against the per-message host paths."""
 import numpy as np
 import pytest
 
-from micro_aes_tpu.modes.bulk import (
+from micro_aes.modes.bulk import (
     ccm_decrypt_batch,
     ccm_encrypt_batch,
     eax_decrypt_batch,
     eax_encrypt_batch,
 )
-from micro_aes_tpu.modes.ccm import ccm_encrypt
-from micro_aes_tpu.modes.eax import eax_encrypt
-from micro_aes_tpu.testing import rsp
+from micro_aes.modes.ccm import ccm_encrypt
+from micro_aes.modes.eax import eax_encrypt
+from micro_aes.testing import rsp
 
 
 @pytest.mark.parametrize("keylen", [128, 192, 256])
-def test_ccm_vnt_batched(keylen):
+def test_ccm_vnt_batched(keylen, vector_corpus):
     recs = rsp.load_ccm(keylen)
     assert len(recs) == 70
     keys = [rsp.hexval(r, "Key") for r in recs]
@@ -52,7 +52,7 @@ def test_ccm_batch_random_vs_single():
             assert backs[i] == pts[i]
 
 
-def test_eax_tv_batched():
+def test_eax_tv_batched(vector_corpus):
     recs = rsp.load_eax()
     assert len(recs) == 10
     keys = [rsp.hexval(r, "KEY") for r in recs]
@@ -90,8 +90,8 @@ def test_eax_batch_random_vs_single():
 
 def test_siv_batch_random_vs_single():
     """Batched SIV == per-message SIV on mixed shapes + RFC-5297 KAT."""
-    from micro_aes_tpu.modes.bulk import siv_decrypt_batch, siv_encrypt_batch
-    from micro_aes_tpu.modes.siv import siv_encrypt
+    from micro_aes.modes.bulk import siv_decrypt_batch, siv_encrypt_batch
+    from micro_aes.modes.siv import siv_encrypt
 
     rng = np.random.default_rng(11)
     keys, aads, pts = [], [], []
@@ -118,8 +118,8 @@ def test_siv_batch_random_vs_single():
 
 def test_kw_batch_random_vs_single():
     """Batched KW == per-message KW; ICV failures isolate per message."""
-    from micro_aes_tpu.modes.bulk import key_unwrap_batch, key_wrap_batch
-    from micro_aes_tpu.modes.kw import key_wrap
+    from micro_aes.modes.bulk import key_unwrap_batch, key_wrap_batch
+    from micro_aes.modes.kw import key_wrap
 
     rng = np.random.default_rng(12)
     keks, secrets = [], []
@@ -144,10 +144,10 @@ def test_mixed_key_sizes_in_one_batch():
     """Every bulk engine accepts AES-128/192/256 keys in ONE batch call
     (split per key-size group and reassembled in order — round-key
     schedules of different round counts cannot stack)."""
-    from micro_aes_tpu.modes import bulk
-    from micro_aes_tpu.modes.cmac import cmac
-    from micro_aes_tpu.modes.gcm import gcm_encrypt
-    from micro_aes_tpu.modes.siv import siv_encrypt
+    from micro_aes.modes import bulk
+    from micro_aes.modes.cmac import cmac
+    from micro_aes.modes.gcm import gcm_encrypt
+    from micro_aes.modes.siv import siv_encrypt
 
     keys = [bytes(range(16)), bytes(range(32)), bytes(range(24))]
     nonces = [bytes(12), bytes(range(12)), bytes(range(11, 23))]
@@ -179,56 +179,44 @@ def test_mixed_key_sizes_in_one_batch():
                                   [ct for _, ct in got]) == pts
 
 
-def test_device_resident_paths_forced_on_cpu():
-    """Force the TPU-gated device-resident glue (multikey relayout,
-    lane-packed MAC folds) through the interpret-mode kernels on CPU and
-    pin it against the host paths — a relayout regression (bitcast byte
-    order, window pad, un-pad slice) must not be TPU-only-visible."""
-    import os
-
+def test_device_resident_paths_match_host():
+    """The device-resident multi-key cipher (no host round trip between
+    the batch engines' stages) equals the host-returning form, both
+    directions, and the full CCM engine with mixed key sizes passed by
+    keyword (signature-bound regrouping) equals the per-message path."""
     import jax.numpy as jnp
 
-    from micro_aes_tpu.modes import bulk
-    from micro_aes_tpu.modes.ccm import ccm_encrypt
+    from micro_aes.modes import bulk
+    from micro_aes.modes.ccm import ccm_encrypt
 
     rng = np.random.default_rng(71)
-    B, nb = 64, 32  # above the dev-path size thresholds
+    B, nb = 64, 32
     keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
             for _ in range(B)]
     blocks = rng.integers(0, 256, (B, nb, 16), dtype=np.uint8)
     want = bulk.cipher_blocks_multikey(keys, blocks)
-    os.environ["MICRO_AES_MULTIKEY_DEV"] = "1"
-    try:
-        got = np.asarray(
-            bulk.cipher_blocks_multikey_dev(keys, jnp.asarray(blocks)))
-        assert np.array_equal(got, want)
-        gotd = np.asarray(bulk.cipher_blocks_multikey_dev(
-            keys, jnp.asarray(want), decrypt=True))
-        assert np.array_equal(gotd, blocks)
-    finally:
-        del os.environ["MICRO_AES_MULTIKEY_DEV"]
+    got = np.asarray(
+        bulk.cipher_blocks_multikey_dev(keys, jnp.asarray(blocks)))
+    assert np.array_equal(got, want)
+    gotd = np.asarray(bulk.cipher_blocks_multikey_dev(
+        keys, jnp.asarray(want), decrypt=True))
+    assert np.array_equal(gotd, blocks)
 
-    # packed folds forced through the full CCM engine (kwargs too:
-    # exercises the signature-bound mixed-key regrouping)
     keys3 = [bytes(range(16)), bytes(range(32)), bytes(range(24))]
     nonces3 = [bytes(range(11))] * 3
     aads3 = [b"", b"hdr", b"x" * 20]
     pts3 = [b"A" * 40, b"", b"B" * 16]
-    os.environ["MICRO_AES_PACKED_FOLDS"] = "1"
-    try:
-        got = bulk.ccm_encrypt_batch(keys3, nonces3, aads3, pts=pts3)
-        assert got == [ccm_encrypt(k, n, a, p)
-                       for k, n, a, p in zip(keys3, nonces3, aads3, pts3)]
-        assert bulk.ccm_decrypt_batch(keys3, nonces3, aads3, got) == pts3
-    finally:
-        del os.environ["MICRO_AES_PACKED_FOLDS"]
+    got = bulk.ccm_encrypt_batch(keys3, nonces3, aads3, pts=pts3)
+    assert got == [ccm_encrypt(k, n, a, p)
+                   for k, n, a, p in zip(keys3, nonces3, aads3, pts3)]
+    assert bulk.ccm_decrypt_batch(keys3, nonces3, aads3, got) == pts3
 
 
 def test_ccm_prefix_batch_matches_per_message():
     """The vectorized B0/A-prefix assembly (one ragged scatter) must
     equal the per-message reference-mirroring builder across every AAD
     length regime, incl. the 0xFFFE long-AAD encoding boundary."""
-    from micro_aes_tpu.modes.bulk import _ccm_b0_prefix, _ccm_prefix_batch
+    from micro_aes.modes.bulk import _ccm_b0_prefix, _ccm_prefix_batch
 
     rng = np.random.default_rng(5)
     alens = [0, 1, 3, 13, 14, 15, 16, 30, 255, 4096, 0xFEFF, 0xFF00, 70000]
@@ -246,123 +234,63 @@ def test_ccm_prefix_batch_matches_per_message():
 
 
 @pytest.mark.full
-def test_fused_aead_engines_forced_on_cpu():
-    """Force the fused CTR+CBC-MAC engine glue (MICRO_AES_AEAD_FUSED=1:
-    batch pad, tail/lastadd masks, whitened-tag finalize) through the
-    interpret-mode kernel on CPU and pin the full CCM and EAX engines
-    against the per-message host oracles — ragged lengths, empty
-    payloads, mixed key sizes (signature-bound regrouping)."""
-    import os
-
-    from micro_aes_tpu.modes import bulk
-    from micro_aes_tpu.modes.ccm import ccm_encrypt
-    from micro_aes_tpu.modes.eax import eax_encrypt
+def test_aead_batch_engines_ragged_and_tamper():
+    """The CCM and EAX batch engines against the per-message oracles:
+    ragged lengths, empty payloads, AAD of every size class, and one
+    tampered tag per direction that must come back None without
+    disturbing its neighbours."""
+    from micro_aes.modes import bulk
+    from micro_aes.modes.ccm import ccm_encrypt
+    from micro_aes.modes.eax import eax_encrypt
 
     rng = np.random.default_rng(73)
     keys, nonces, aads, pts = [], [], [], []
-    # one key size: every interpret-mode kernel compile costs ~90 s on
-    # CPU, and mixed sizes regroup into one compile per size; the
-    # mixed-size regrouping itself is covered by the (cheap) legacy-path
-    # test above
-    for i, ln in enumerate([0, 1, 15, 16, 17, 33, 100]):
+    for ln in [0, 1, 15, 16, 17, 33, 100]:
         keys.append(rng.integers(0, 256, 16, dtype=np.uint8).tobytes())
         nonces.append(rng.integers(0, 256, 11, dtype=np.uint8).tobytes())
         aads.append(rng.integers(0, 256, (ln * 5) % 40,
                                  dtype=np.uint8).tobytes())
         pts.append(rng.integers(0, 256, ln, dtype=np.uint8).tobytes())
-    os.environ["MICRO_AES_AEAD_FUSED"] = "1"
-    try:
-        got = bulk.ccm_encrypt_batch(keys, nonces, aads, pts)
-        want = [ccm_encrypt(k, n, a, p)
-                for k, n, a, p in zip(keys, nonces, aads, pts)]
-        assert got == want
-        assert bulk.ccm_decrypt_batch(keys, nonces, aads, got) == pts
-        # tamper one tag -> None, others unaffected
-        bad = list(got)
-        bad[3] = bad[3][:-1] + bytes([bad[3][-1] ^ 1])
-        outs = bulk.ccm_decrypt_batch(keys, nonces, aads, bad)
-        assert outs[3] is None and outs[:3] == pts[:3]
+    got = bulk.ccm_encrypt_batch(keys, nonces, aads, pts)
+    want = [ccm_encrypt(k, n, a, p)
+            for k, n, a, p in zip(keys, nonces, aads, pts)]
+    assert got == want
+    assert bulk.ccm_decrypt_batch(keys, nonces, aads, got) == pts
+    bad = list(got)
+    bad[3] = bad[3][:-1] + bytes([bad[3][-1] ^ 1])
+    outs = bulk.ccm_decrypt_batch(keys, nonces, aads, bad)
+    assert outs[3] is None and outs[:3] == pts[:3]
 
-        nonces12 = [n + b"\x00" for n in nonces]
-        got = bulk.eax_encrypt_batch(keys, nonces12, aads, pts)
-        want = [eax_encrypt(k, n, a, p)
-                for k, n, a, p in zip(keys, nonces12, aads, pts)]
-        assert got == want
-        assert bulk.eax_decrypt_batch(keys, nonces12, aads, got) == pts
-        bad = list(got)
-        bad[5] = bad[5][:-1] + bytes([bad[5][-1] ^ 1])
-        outs = bulk.eax_decrypt_batch(keys, nonces12, aads, bad)
-        assert outs[5] is None and outs[4] == pts[4]
-    finally:
-        del os.environ["MICRO_AES_AEAD_FUSED"]
-
-
-def test_kw_wheel_kernel_matches_scan():
-    """The lane-packed KW wheel kernel (VERDICT r4 item 7: whole R
-    array VMEM-resident, one grid step per wheel step) is bit-exact vs
-    the vmapped _wrap_scan/_unwrap_scan oracles, wrap and unwrap, with
-    per-lane keys."""
-    import jax
-    import jax.numpy as jnp
-
-    from micro_aes_tpu.core.bitslice import key_planes_packed
-    from micro_aes_tpu.modes.bulk import stack_round_keys
-    from micro_aes_tpu.modes.kw import _unwrap_scan, _wrap_scan
-    from micro_aes_tpu.ops.pallas_chain import kw_packed_fused, wide_perm
-
-    rng = np.random.default_rng(83)
-    b, n = 256, 4  # w=8 -> tile 8: exercises the wide lane splits
-    keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
-            for _ in range(b)]
-    rks = stack_round_keys(keys)
-    kpw_w = jnp.asarray(key_planes_packed(rks[wide_perm(b)]))
-    secrets = rng.integers(0, 256, (b, n, 8), dtype=np.uint8)
-
-    got = np.asarray(kw_packed_fused(kpw_w, jnp.asarray(secrets)))
-    rksj = jnp.asarray(rks)
-    a0 = jnp.full((b, 8), 0xA6, jnp.uint8)
-    a, r = jax.vmap(lambda rk, av, rv: _wrap_scan(rk, av, rv, n))(
-        rksj, a0, jnp.asarray(secrets))
-    want = np.concatenate([np.asarray(a)[:, None, :], np.asarray(r)],
-                          axis=1)
-    assert np.array_equal(got, want)
-
-    back = np.asarray(kw_packed_fused(kpw_w, jnp.asarray(got),
-                                      unwrap=True))
-    au, ru = jax.vmap(lambda rk, av, rv: _unwrap_scan(rk, av, rv, n))(
-        rksj, jnp.asarray(want[:, 0]), jnp.asarray(want[:, 1:]))
-    assert np.array_equal(back[:, 0], np.asarray(au))
-    assert np.array_equal(back[:, 1:], np.asarray(ru))
-    assert np.all(back[:, 0] == 0xA6) and np.array_equal(back[:, 1:],
-                                                         secrets)
+    nonces12 = [n + b"\x00" for n in nonces]
+    got = bulk.eax_encrypt_batch(keys, nonces12, aads, pts)
+    want = [eax_encrypt(k, n, a, p)
+            for k, n, a, p in zip(keys, nonces12, aads, pts)]
+    assert got == want
+    assert bulk.eax_decrypt_batch(keys, nonces12, aads, got) == pts
+    bad = list(got)
+    bad[5] = bad[5][:-1] + bytes([bad[5][-1] ^ 1])
+    outs = bulk.eax_decrypt_batch(keys, nonces12, aads, bad)
+    assert outs[5] is None and outs[4] == pts[4]
 
 
 @pytest.mark.full
-def test_kw_batch_fused_gate_forced_on_cpu():
-    """key_wrap_batch/key_unwrap_batch through the kernel path
-    (MICRO_AES_KW_FUSED=1, batch padded to lanes) vs the scan path."""
-    import os
-
-    from micro_aes_tpu.modes.bulk import key_unwrap_batch, key_wrap_batch
-    from micro_aes_tpu.ops.pallas_chain import kw_kernel_fits
+def test_kw_batch_matches_per_message_and_tamper():
+    """key_wrap_batch/key_unwrap_batch against the per-message KW path,
+    plus ICV failure isolation on unwrap."""
+    from micro_aes.modes.bulk import key_unwrap_batch, key_wrap_batch
+    from micro_aes.modes.kw import key_wrap
 
     rng = np.random.default_rng(89)
-    b, n = 1000, 3  # pads to 1024 lanes; kernel-eligible
-    assert kw_kernel_fits(1024, n)
+    b, n = 100, 3
     keks = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
             for _ in range(b)]
     secrets = [rng.integers(0, 256, n * 8, dtype=np.uint8).tobytes()
                for _ in range(b)]
-    want = key_wrap_batch(keks, secrets)
-    os.environ["MICRO_AES_KW_FUSED"] = "1"
-    try:
-        got = key_wrap_batch(keks, secrets)
-        assert got == want
-        back = key_unwrap_batch(keks, got)
-        assert back == secrets
-        bad = list(got)
-        bad[7] = bad[7][:1] + bytes([bad[7][1] ^ 1]) + bad[7][2:]
-        outs = key_unwrap_batch(keks, bad)
-        assert outs[7] is None and outs[6] == secrets[6]
-    finally:
-        del os.environ["MICRO_AES_KW_FUSED"]
+    got = key_wrap_batch(keks, secrets)
+    for i in (0, 7, b - 1):
+        assert got[i] == key_wrap(keks[i], secrets[i])
+    assert key_unwrap_batch(keks, got) == secrets
+    bad = list(got)
+    bad[7] = bad[7][:1] + bytes([bad[7][1] ^ 1]) + bad[7][2:]
+    outs = key_unwrap_batch(keks, bad)
+    assert outs[7] is None and outs[6] == secrets[6]

@@ -2,7 +2,7 @@
 both directions, batched (7875 vectors per file, a handful of device
 dispatches each).
 
-Two tiers (VERDICT r4 item 10, mirroring the reference's two-tier
+Two tiers (mirroring the reference's two-tier
 main.c/testvectors split): the complete corpora run under `-m full`
 (nightly); the default run covers a DETERMINISTIC 1-in-16 sample of the
 same files (~492 vectors per key size, every IV/AAD/PT length class
@@ -10,9 +10,11 @@ present) so the default suite stays under 20 minutes."""
 import numpy as np
 import pytest
 
-from micro_aes_tpu.modes.bulk import gcm_decrypt_batch, gcm_encrypt_batch
-from micro_aes_tpu.modes.gcm import gcm_decrypt, gcm_encrypt
-from micro_aes_tpu.testing import rsp
+from micro_aes.modes.bulk import gcm_decrypt_batch, gcm_encrypt_batch
+from micro_aes.modes.gcm import gcm_decrypt, gcm_encrypt
+from micro_aes.testing import rsp
+
+pytestmark = pytest.mark.usefixtures("vector_corpus")
 
 SAMPLE_STRIDE = 16  # deterministic default-tier sample: recs[::16]
 
@@ -65,8 +67,8 @@ def test_gcm_cavp_encrypt_all(keylen):
 @pytest.mark.full
 @pytest.mark.parametrize("keylen", [128, 192, 256])
 def test_gcm_cavp_decrypt_all(keylen):
-    """Full decrypt corpus through the batched verify-before-decrypt open
-    (VERDICT r1 item 8): every vector, grouped by tag length."""
+    """Full decrypt corpus through the batched verify-before-decrypt open:
+    every vector, grouped by tag length."""
     recs = rsp.load_gcm(keylen)
     assert len(recs) == 7875
     bad = _decrypt_corpus(recs)

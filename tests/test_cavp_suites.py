@@ -1,17 +1,20 @@
 """Remaining conformance suites: CCM (VNT), XTS, CMAC, GCM-SIV, EAX, OCB,
-Poly1305 — full corpora from /root/reference/testvectors (SURVEY §4)."""
+Poly1305 — full corpora from the reference vector directory
+(MICRO_AES_VECTORS; SURVEY §4)."""
 import numpy as np
 import pytest
 
-from micro_aes_tpu.errors import AuthenticationError
-from micro_aes_tpu.modes import (
+from micro_aes.errors import AuthenticationError
+from micro_aes.modes import (
     ccm_decrypt, ccm_encrypt, eax_decrypt, eax_encrypt,
     gcm_siv_decrypt, gcm_siv_encrypt, ocb_decrypt, ocb_encrypt,
     poly1305_aes,
 )
-from micro_aes_tpu.modes.bulk import cmac_batch, xts_batch
-from micro_aes_tpu.modes.xts import xts_decrypt, xts_encrypt
-from micro_aes_tpu.testing import rsp
+from micro_aes.modes.bulk import cmac_batch, xts_batch
+from micro_aes.modes.xts import xts_decrypt, xts_encrypt
+from micro_aes.testing import rsp
+
+pytestmark = pytest.mark.usefixtures("vector_corpus")
 
 
 @pytest.mark.parametrize("keylen", [128, 192, 256])

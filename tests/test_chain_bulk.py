@@ -3,9 +3,9 @@ modes as oracle, across ragged lengths, CTS, padding, and mixed keys."""
 import numpy as np
 import pytest
 
-from micro_aes_tpu.errors import DataLengthError
-from micro_aes_tpu.modes import cbc, cfb, ctr, ecb, ofb
-from micro_aes_tpu.modes.chain_bulk import (
+from micro_aes.errors import DataLengthError
+from micro_aes.modes import cbc, cfb, ctr, ecb, ofb
+from micro_aes.modes.chain_bulk import (
     cbc_decrypt_batch,
     cbc_encrypt_batch,
     cfb_decrypt_batch,
@@ -15,13 +15,9 @@ from micro_aes_tpu.modes.chain_bulk import (
     ecb_encrypt_batch,
     ofb_xcrypt_batch,
 )
-from micro_aes_tpu.modes.common import PAD_ISO7816, PAD_PKCS7, PAD_ZERO
+from micro_aes.modes.common import PAD_ISO7816, PAD_PKCS7, PAD_ZERO
 
 LENS = [16, 17, 31, 32, 33, 48, 100, 256, 1000]
-
-# In-kernel segment length of the retired fori_loop chain-kernel form;
-# nb values straddling it are kept as a historical regression shape.
-_CHAIN_SEG = 64
 
 
 def _mk(rng, lens, keylen=16):
@@ -118,9 +114,9 @@ def test_cipher_blocks_multikey_mixed_key_sizes():
     per-message oracle."""
     import numpy as np
 
-    from micro_aes_tpu.core.cipher import encrypt_blocks
-    from micro_aes_tpu.core.keyschedule import expand_key
-    from micro_aes_tpu.modes.bulk import cipher_blocks_multikey
+    from micro_aes.core.cipher import encrypt_blocks
+    from micro_aes.core.keyschedule import expand_key
+    from micro_aes.modes.bulk import cipher_blocks_multikey
     import jax.numpy as jnp
 
     rng = np.random.default_rng(9)
@@ -135,211 +131,94 @@ def test_cipher_blocks_multikey_mixed_key_sizes():
 
 
 def test_packed_chain_scans_match_vmapped():
-    """The lane-packed bitsliced chain engines (TPU path: 32 messages
-    per word, per-lane keys) are bit-exact vs the vmapped per-message
-    scans (CPU path) — mixed per-lane keys, ragged batch (B % 32 != 0
-    exercises the pad), CBC/CFB/OFB."""
-    import os
-
-    from micro_aes_tpu.modes.chain_bulk import (
-        cbc_encrypt_batch,
-        cfb_encrypt_batch,
-        ofb_xcrypt_batch,
-    )
-
-    rng = np.random.default_rng(21)
-    nmsg = 5
-    keys = [rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
-            for _ in range(nmsg)]
-    ivs = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
-           for _ in range(nmsg)]
-    pts = [rng.integers(0, 256, ln, dtype=np.uint8).tobytes()
-           for ln in (16, 33, 64, 100, 160)]
-
-    runs = {}
-    for forced in ("0", "1"):
-        os.environ["MICRO_AES_CHAIN_BITSLICE"] = forced
-        try:
-            runs[forced] = (cbc_encrypt_batch(keys, ivs, pts),
-                            cfb_encrypt_batch(keys, ivs, pts),
-                            ofb_xcrypt_batch(keys, ivs, pts))
-        finally:
-            del os.environ["MICRO_AES_CHAIN_BITSLICE"]
-    assert runs["0"] == runs["1"]
-
-
-@pytest.mark.quick
-def test_chain_kernel_interpret_matches_scan():
-    """The VMEM-resident Pallas chain kernel (interpret mode off-TPU)
-    is bit-exact vs the lane-packed scan twins for CBC/CFB/OFB —
-    per-lane keys, nb spanning multiple kernel segments."""
-    import jax.numpy as jnp
-
-    from micro_aes_tpu.core.bitslice import key_planes_packed
-    from micro_aes_tpu.modes._scan import (
-        cbc_encrypt_scan_packed,
-        cfb_encrypt_scan_packed,
-        ofb_keystream_scan_packed,
-    )
-    from micro_aes_tpu.modes.bulk import stack_round_keys
-    from micro_aes_tpu.ops.pallas_chain import chain_packed_fused
-
-    rng = np.random.default_rng(31)
-    b, nb = 32, _CHAIN_SEG + 3  # spans the former in-kernel segment bound
-    keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
-            for _ in range(b)]
-    kpw = jnp.asarray(key_planes_packed(stack_round_keys(keys)))
-    ivs = jnp.asarray(rng.integers(0, 256, (b, 16), dtype=np.uint8))
-    blocks = jnp.asarray(rng.integers(0, 256, (b, nb, 16), dtype=np.uint8))
-
-    from micro_aes_tpu.ops.pallas_chain import ofb_packed_fused
-
-    for kind, scan in (("cbc", cbc_encrypt_scan_packed),
-                       ("cfb", cfb_encrypt_scan_packed),
-                       ("ofb", None)):
-        if kind == "ofb":
-            got = np.asarray(ofb_packed_fused(kpw, ivs, nb))
-            want = np.asarray(ofb_keystream_scan_packed(
-                kpw, ivs, jnp.zeros(nb, jnp.uint8)))
-        else:
-            got = np.asarray(chain_packed_fused(kind, kpw, ivs, blocks))
-            want = np.asarray(scan(kpw, ivs, blocks))
-        assert np.array_equal(got, want), kind
-
-
-@pytest.mark.quick
-def test_cbcmac_kernel_interpret_matches_fold():
-    """The lane-packed masked CBC-MAC kernel (the TPU path behind every
-    batched CMAC/CCM/EAX/SIV tag fold) is bit-exact vs the vmapped scan
-    fold — per-lane keys, ragged nvalid including zero, nb spanning
-    kernel segments."""
-    import jax.numpy as jnp
-
-    from micro_aes_tpu.core.bitslice import key_planes_packed
-    from micro_aes_tpu.modes.bulk import stack_round_keys
-    from micro_aes_tpu.ops.mac import cbcmac_fold_batch
-    from micro_aes_tpu.ops.pallas_chain import cbcmac_packed_fused
-
-    rng = np.random.default_rng(41)
-    b, nb = 32, _CHAIN_SEG + 2
-    keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
-            for _ in range(b)]
-    rks = stack_round_keys(keys)
-    kpw = jnp.asarray(key_planes_packed(rks))
-    init = rng.integers(0, 256, (b, 16), dtype=np.uint8)
-    blocks = rng.integers(0, 256, (b, nb, 16), dtype=np.uint8)
-    nvalid = rng.integers(0, nb + 1, b, dtype=np.int32)
-    nvalid[0], nvalid[1] = 0, nb  # edge lanes
-
-    got = np.asarray(cbcmac_packed_fused(kpw, jnp.asarray(init),
-                                         jnp.asarray(blocks),
-                                         jnp.asarray(nvalid)))
-    want = np.asarray(cbcmac_fold_batch(jnp.asarray(rks), jnp.asarray(init),
-                                        jnp.asarray(blocks),
-                                        jnp.asarray(nvalid)))
-    assert np.array_equal(got, want)
-
-
-@pytest.mark.parametrize("kind,decrypt", [
-    pytest.param("ccm", False, marks=pytest.mark.quick),
-    pytest.param("ccm", True, marks=pytest.mark.full),
-    pytest.param("eax", False, marks=pytest.mark.quick),
-    pytest.param("eax", True, marks=pytest.mark.full),
-])
-def test_aead_chain_kernel_interpret_matches_composition(kind, decrypt):
-    # default tier covers both MAC sides (CCM seal folds input, EAX seal
-    # folds output) and whiten on/off; the two open directions run
-    # nightly (-m full) — each param costs a ~90 s interpret compile on
-    # the 2-core CI box
-    """The fused CTR+CBC-MAC kernel (one VMEM pass: keystream xor AND
-    the auth fold, VERDICT r4 item 1) is bit-exact vs the composition of
-    the primitives it replaces: counter_blocks('be') + vmapped cipher +
-    cbcmac_fold_batch with the final-block tail/lastadd transform."""
+    """The lane-packed bitsliced chain scans (32 messages per word,
+    per-lane keys — the local body of parallel/batch.chain_sharded_fn)
+    are bit-exact vs the vmapped per-message scans — mixed per-lane
+    keys, a ragged batch padded to 32 lanes, CBC/CFB/OFB."""
     import jax
     import jax.numpy as jnp
 
-    from micro_aes_tpu.core.bitslice import key_planes_packed
-    from micro_aes_tpu.core.cipher import encrypt_blocks
-    from micro_aes_tpu.modes.bulk import stack_round_keys
-    from micro_aes_tpu.ops.counter import counter_blocks
-    from micro_aes_tpu.ops.mac import cbcmac_fold_batch
-    from micro_aes_tpu.ops.pallas_chain import aead_chain_fused
+    from micro_aes.core.bitslice import key_planes_packed
+    from micro_aes.modes._scan import (
+        cbc_encrypt_scan,
+        cbc_encrypt_scan_packed,
+        cfb_encrypt_scan,
+        cfb_encrypt_scan_packed,
+        ofb_keystream_scan,
+        ofb_keystream_scan_packed,
+    )
+    from micro_aes.modes.bulk import stack_round_keys
 
-    rng = np.random.default_rng(47)
-    b, nb = 32, 5
-    keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
-            for _ in range(b)]
+    rng = np.random.default_rng(21)
+    nmsg, nb = 5, 7
+    keys = [rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+            for _ in range(nmsg)]
     rks = stack_round_keys(keys)
-    kpw = jnp.asarray(key_planes_packed(rks))
-    c0 = rng.integers(0, 256, (b, 16), dtype=np.uint8)
-    c0[2, 9:] = 0xFF  # exercise the 56-bit carry window edge
-    init = rng.integers(0, 256, (b, 16), dtype=np.uint8)
-    blocks = rng.integers(0, 256, (b, nb, 16), dtype=np.uint8)
-    nvalid = rng.integers(0, nb + 1, b).astype(np.int32)
-    nvalid[0], nvalid[1] = 0, nb  # edge lanes
-    tail = rng.integers(0, 256, (b, 16), dtype=np.uint8)
-    lastadd = rng.integers(0, 256, (b, 16), dtype=np.uint8)
-
-    got_out, got_tag = aead_chain_fused(
-        kind, kpw, jnp.asarray(c0), jnp.asarray(init), jnp.asarray(blocks),
-        jnp.asarray(nvalid), jnp.asarray(tail), jnp.asarray(lastadd),
-        decrypt=decrypt)
-    got_out, got_tag = np.asarray(got_out), np.asarray(got_tag)
-
-    whiten = kind == "ccm"
-    mac_from_input = (kind == "ccm") != decrypt
-    nctr = nb + (1 if whiten else 0)
-    ctrs = jax.vmap(lambda base: counter_blocks(base, nctr, 0, "be"))(
-        jnp.asarray(c0))
-    ks_all = np.asarray(jax.vmap(encrypt_blocks)(jnp.asarray(rks), ctrs))
-    ks = ks_all[:, 1:] if whiten else ks_all
-    want_out = blocks ^ ks
-    macsrc = (blocks if mac_from_input else want_out).copy()
-    for i in range(b):
-        if nvalid[i]:
-            j = nvalid[i] - 1
-            macsrc[i, j] = (macsrc[i, j] & tail[i]) ^ lastadd[i]
-    mac = np.asarray(cbcmac_fold_batch(
-        jnp.asarray(rks), jnp.asarray(init), jnp.asarray(macsrc),
-        jnp.asarray(nvalid)))
-    want_tag = (ks_all[:, 0] ^ mac) if whiten else mac
-    assert np.array_equal(got_out, want_out), "stream mismatch"
-    assert np.array_equal(got_tag, want_tag), "tag mismatch"
+    ivs = rng.integers(0, 256, (nmsg, 16), dtype=np.uint8)
+    blocks = rng.integers(0, 256, (nmsg, nb, 16), dtype=np.uint8)
+    pad = (-nmsg) % 32
+    kpw = jnp.asarray(key_planes_packed(
+        np.concatenate([rks, np.repeat(rks[-1:], pad, 0)])))
+    ivp = jnp.asarray(np.pad(ivs, ((0, pad), (0, 0))))
+    blp = jnp.asarray(np.pad(blocks, ((0, pad), (0, 0), (0, 0))))
+    rj, ivj, bj = jnp.asarray(rks), jnp.asarray(ivs), jnp.asarray(blocks)
+    dummy = jnp.zeros((nmsg, nb, 1), jnp.uint8)
+    for packed, data, scan, arg in (
+            (cbc_encrypt_scan_packed, blp, cbc_encrypt_scan, bj),
+            (cfb_encrypt_scan_packed, blp, cfb_encrypt_scan, bj),
+            (ofb_keystream_scan_packed, jnp.zeros(nb, jnp.uint8),
+             ofb_keystream_scan, dummy)):
+        got = np.asarray(packed(kpw, ivp, data))[:nmsg]
+        want = np.asarray(jax.vmap(scan)(rj, ivj, arg))
+        assert np.array_equal(got, want), packed.__name__
 
 
-@pytest.mark.full
-def test_wide_chain_kernels_match_legacy():
-    """Wide-layout chain kernels (one 2D transpose + in-kernel lane
-    slicing, VERDICT r4 item 2) vs the legacy interleave wrappers:
-    bit-equality for CBC/CFB/OFB with per-lane keys."""
+@pytest.mark.parametrize("decrypt", [False, True])
+def test_aead_sharded_ccm_matches_per_message(decrypt):
+    """The dp-sharded CTR+CBC-MAC engine (parallel/batch.aead_sharded_fn,
+    CCM form: whiten step + plaintext MAC) on a 2-device mesh against
+    the per-message CCM path, seal and open, including a counter base
+    at the 56-bit carry window edge."""
     import jax.numpy as jnp
 
-    from micro_aes_tpu.core.bitslice import key_planes_packed
-    from micro_aes_tpu.modes.bulk import stack_round_keys
-    from micro_aes_tpu.ops.pallas_chain import (
-        chain_packed_fused,
-        chain_packed_fused_wide,
-        ofb_packed_fused,
-        ofb_packed_fused_wide,
-        wide_ok,
-        wide_perm,
-    )
+    from micro_aes.modes.bulk import _ccm_prefix_batch, stack_round_keys
+    from micro_aes.modes.ccm import _iv0, ccm_encrypt
+    from micro_aes.ops.mac import cbcmac_fold_batch
+    from micro_aes.parallel.batch import aead_sharded_fn
+    from micro_aes.parallel.mesh import make_mesh
 
-    rng = np.random.default_rng(53)
-    b, nb = 2048, 3  # w=64 -> tile 64: multi-j lane splits exercised
-    assert wide_ok(b)
+    rng = np.random.default_rng(47)
+    b, nb = 4, 5
     keys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
             for _ in range(b)]
+    nonces = [rng.integers(0, 256, 11, dtype=np.uint8).tobytes()
+              for _ in range(b)]
+    nonces[2] = nonces[2][:8] + b"\xff\xff\xff"
+    aads = [b"aead-%d" % i * i for i in range(b)]
+    pts = [rng.integers(0, 256, nb * 16, dtype=np.uint8).tobytes()
+           for _ in range(b)]
+    want = [ccm_encrypt(k, n, a, p)
+            for k, n, a, p in zip(keys, nonces, aads, pts)]
     rks = stack_round_keys(keys)
-    kpw = jnp.asarray(key_planes_packed(rks))
-    kpw_w = jnp.asarray(key_planes_packed(rks[wide_perm(b)]))
-    ivs = jnp.asarray(rng.integers(0, 256, (b, 16), dtype=np.uint8))
-    blocks = jnp.asarray(rng.integers(0, 256, (b, nb, 16), dtype=np.uint8))
-
-    for kind in ("cbc", "cfb"):
-        want = np.asarray(chain_packed_fused(kind, kpw, ivs, blocks))
-        got = np.asarray(chain_packed_fused_wide(kind, kpw_w, ivs, blocks))
-        assert np.array_equal(got, want), kind
-    want = np.asarray(ofb_packed_fused(kpw, ivs, nb))
-    got = np.asarray(ofb_packed_fused_wide(kpw_w, ivs, nb))
-    assert np.array_equal(got, want)
+    iv0s = np.stack([_iv0(np.frombuffer(n, np.uint8)) for n in nonces])
+    pb, nv1 = _ccm_prefix_batch(iv0s, [np.frombuffer(a, np.uint8)
+                                       for a in aads],
+                                [len(p) for p in pts], 16)
+    init = cbcmac_fold_batch(jnp.asarray(rks),
+                             jnp.zeros((b, 16), jnp.uint8),
+                             jnp.asarray(pb), jnp.asarray(nv1))
+    src = [w[:-16] for w in want] if decrypt else pts
+    blocks = np.stack([np.frombuffer(x, np.uint8).reshape(nb, 16)
+                       for x in src])
+    fn = aead_sharded_fn(make_mesh(2, 1), "ccm", decrypt=decrypt)
+    out, tags = fn(jnp.asarray(rks), jnp.asarray(iv0s), init,
+                   jnp.asarray(blocks), jnp.full(b, nb, jnp.int32),
+                   jnp.full((b, 16), 0xFF, jnp.uint8),
+                   jnp.zeros((b, 16), jnp.uint8))
+    out, tags = np.asarray(out), np.asarray(tags)
+    for i in range(b):
+        if decrypt:
+            assert bytes(out[i].reshape(-1)) == pts[i], i
+            assert bytes(tags[i]) == want[i][-16:], i
+        else:
+            assert bytes(out[i].reshape(-1)) + bytes(tags[i]) == want[i], i

@@ -1,6 +1,6 @@
 """C-style compat layer: names, conventions and numeric codes."""
-from micro_aes_tpu import compat
-from micro_aes_tpu.testing import kat
+from micro_aes import compat
+from micro_aes.testing import kat
 import pytest
 
 pytestmark = pytest.mark.quick

@@ -2,14 +2,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from micro_aes_tpu.core import (
+from micro_aes.core import (
     aes_cipher,
     decrypt_blocks,
     encrypt_blocks,
     expand_key,
 )
-from micro_aes_tpu.testing import kat
-from micro_aes_tpu.utils.bytesio import from_blocks, to_blocks
+from micro_aes.testing import kat
+from micro_aes.utils.bytesio import from_blocks, to_blocks
 import pytest
 
 pytestmark = pytest.mark.quick
@@ -71,8 +71,8 @@ def test_expand_keys_batch_matches_per_key():
     """The vectorized batch schedule (one recurrence over B keys) must
     equal the per-key expansion bit-for-bit for every key size, and the
     batched plane packing must equal per-key key_planes."""
-    from micro_aes_tpu.core.bitslice import key_planes, key_planes_batch
-    from micro_aes_tpu.core.keyschedule import expand_keys_batch
+    from micro_aes.core.bitslice import key_planes, key_planes_batch
+    from micro_aes.core.keyschedule import expand_keys_batch
 
     rng = np.random.default_rng(41)
     for klen in (16, 24, 32):
@@ -92,7 +92,7 @@ def test_sbox_circuit_gate_counts():
     a regression here silently costs double-digit throughput.  Forward
     is the Boyar-Peralta netlist; the inverse is derived at import, so
     its count depends on the randomized Paar factoring (fixed seed)."""
-    from micro_aes_tpu.core import bitslice as bs
+    from micro_aes.core import bitslice as bs
 
     class G:
         xor = 0

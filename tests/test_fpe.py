@@ -1,9 +1,9 @@
 """FPE FF1/FF3/FF3-1 against the reference tv corpus + main.c vectors."""
 import pytest
 
-from micro_aes_tpu.errors import EncryptionError
-from micro_aes_tpu.fpe import fpe_decrypt, fpe_encrypt
-from micro_aes_tpu.testing import kat, rsp
+from micro_aes.errors import EncryptionError
+from micro_aes.fpe import fpe_decrypt, fpe_encrypt
+from micro_aes.testing import kat, rsp
 
 
 def test_fpe_main_c_ff1():
@@ -21,7 +21,7 @@ def test_fpe_main_c_ff3():
     assert fpe_decrypt(key, tweak, out, "digits", "ff3-1") == pt
 
 
-def test_fpe_tv_corpus():
+def test_fpe_tv_corpus(vector_corpus):
     recs = rsp.load_fpe()
     assert len(recs) >= 50
     ran = 0

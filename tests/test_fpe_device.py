@@ -10,10 +10,10 @@ import collections
 import numpy as np
 import pytest
 
-from micro_aes_tpu.errors import DecryptionError, EncryptionError
-from micro_aes_tpu.fpe import fpe_encrypt
-from micro_aes_tpu.fpe.device import fpe_decrypt_batch, fpe_encrypt_batch
-from micro_aes_tpu.testing import kat, rsp
+from micro_aes.errors import DecryptionError, EncryptionError
+from micro_aes.fpe import fpe_encrypt
+from micro_aes.fpe.device import fpe_decrypt_batch, fpe_encrypt_batch
+from micro_aes.testing import kat, rsp
 
 
 def test_device_main_c_ff1():
@@ -32,7 +32,7 @@ def test_device_main_c_ff3():
     assert fpe_decrypt_batch(key, tweak, out, "digits", "ff3-1") == [pt]
 
 
-def test_device_tv_corpus():
+def test_device_tv_corpus(vector_corpus):
     """Every tv-corpus record through the batched device path, grouped
     by (method, key, tweak, alphabet) so each group is one dispatch."""
     recs = rsp.load_fpe()
@@ -67,7 +67,7 @@ def test_device_matches_host_fuzz(method):
                                  dtype=np.uint8))
         tlen = 7 if method == "ff3-1" else int(rng.integers(0, 20))
         tweak = bytes(rng.integers(0, 256, tlen, dtype=np.uint8))
-        from micro_aes_tpu.fpe.alphabet import resolve_alphabet
+        from micro_aes.fpe.alphabet import resolve_alphabet
 
         a = resolve_alphabet(alpha)
         lo = a.min_len
@@ -86,8 +86,8 @@ def test_device_matches_host_fuzz(method):
 
 @pytest.mark.parametrize("method", ["ff1", "ff3-1"])
 def test_device_bitsliced_prf_matches(method, monkeypatch):
-    """The bitsliced-PRF variant (the TPU default, gated off on CPU for
-    compile time) must be bit-identical to the gather-PRF path.  One
+    """The bitsliced-PRF variant (opt-in via MICRO_AES_FPE_BITSLICE=1)
+    must be bit-identical to the default gather-PRF path.  One
     fixed (radix, length) config keeps the CPU compile bounded."""
     monkeypatch.setenv("MICRO_AES_FPE_BITSLICE", "1")
     key = kat.CIPHER_KEY[:16]
@@ -126,7 +126,7 @@ def test_device_mixed_lengths_one_call():
 def test_digit_array_api_matches_string_batch():
     """fpe_{en,de}crypt_digits (the zero-string bulk path) agree with the
     string batch API and round-trip, including a non-32-aligned batch."""
-    from micro_aes_tpu.fpe.device import fpe_decrypt_digits, fpe_encrypt_digits
+    from micro_aes.fpe.device import fpe_decrypt_digits, fpe_encrypt_digits
 
     key = kat.CIPHER_KEY[:16]
     tweak = b"\x01\x02"
@@ -142,7 +142,7 @@ def test_digit_array_api_matches_string_batch():
 
 
 def test_digit_array_api_validation():
-    from micro_aes_tpu.fpe.device import fpe_encrypt_digits
+    from micro_aes.fpe.device import fpe_encrypt_digits
 
     key = kat.CIPHER_KEY[:16]
     with pytest.raises(EncryptionError):
@@ -157,7 +157,7 @@ def test_chunked_dispatch_matches_unchunked(method, monkeypatch):
     (_map_chunks pad/slice glue); with FPE_CHUNK shrunk, a small
     non-multiple batch drives the same glue on CPU and must agree
     bit-exactly with the flat dispatch (ADVICE r4)."""
-    from micro_aes_tpu.fpe import device as fdev
+    from micro_aes.fpe import device as fdev
 
     rng = np.random.default_rng(11)
     key = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()

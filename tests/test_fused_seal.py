@@ -1,9 +1,10 @@
-"""Fused seal/open engine coverage off-TPU (VERDICT r1 items 3/4/8):
+"""Fused seal/open engine coverage on the CPU:
 
-* the jnp twin (seal_fused_jnp) drives the full fused orchestration —
-  trailing-pad compensation, AAD shift, open direction — on CPU;
-* the Pallas kernel itself runs once in interpret mode and must equal
-  the twin bit-for-bit (same math, different lowering);
+* the XLA engine (seal_fused_jnp) drives the full fused orchestration —
+  trailing-pad compensation, AAD shift, open direction;
+* the GPU keystream kernel's path through the seal (kernel output +
+  XLA GHASH of the ciphertext words) runs with the kernel in interpret
+  mode and must equal the XLA engine bit-for-bit;
 * the *sharded* fused engine (gcm_sharded_fused_fn) runs on the
   8-virtual-device mesh, both directions, with and without AAD.
 """
@@ -12,17 +13,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from micro_aes_tpu.modes.gcm import gcm_decrypt, gcm_encrypt
-from micro_aes_tpu.modes.seal import gcm_key_setup, gcm_open, gcm_seal
-from micro_aes_tpu.modes.common import enc_blocks_np
-from micro_aes_tpu.errors import AuthenticationError
-from micro_aes_tpu.parallel.mesh import make_mesh
-from micro_aes_tpu.parallel.sharded import (
+from micro_aes.modes.gcm import gcm_decrypt, gcm_encrypt
+from micro_aes.modes.seal import gcm_key_setup, gcm_open, gcm_seal
+from micro_aes.modes.common import enc_blocks_np
+from micro_aes.errors import AuthenticationError
+from micro_aes.parallel.mesh import make_mesh
+from micro_aes.parallel.sharded import (
     gcm_sharded_fused_fn,
     shard_adjust_matrices_fused,
     sharded_aad_args,
 )
-from micro_aes_tpu.utils.bytesio import BLOCK
+from micro_aes.utils.bytesio import BLOCK
 
 
 def _j0(nonce: bytes) -> np.ndarray:
@@ -75,7 +76,7 @@ class TestFusedOrchestration:
 @pytest.mark.parametrize("dp,sp", [(2, 4), (1, 8)])
 @pytest.mark.parametrize("use_aad", [False, True])
 def test_sharded_fused_seal_and_open(dp, sp, use_aad):
-    """The fused sharded engine (the code path a real pod runs) on the
+    """The fused sharded engine (the code path a device mesh runs) on the
     virtual mesh: seal must equal the host reference, open must invert."""
     assert len(jax.devices()) >= 8
     mesh = make_mesh(dp, sp)
@@ -112,190 +113,96 @@ def test_sharded_fused_seal_and_open(dp, sp, use_aad):
     assert np.array_equal(np.asarray(tag2), tag)
 
 
-@pytest.mark.quick
-def test_seal_kernel_interpret_matches_jnp_twin():
-    """The actual Pallas kernel (interpret mode off-TPU) against the jnp
-    twin: same math module, different lowering — must be bit-identical.
-    One small W=SEAL_TILE_W tile keeps interpret-mode cost bounded."""
-    from micro_aes_tpu.ops.pallas_seal import (
-        SEAL_TILE_W,
-        seal_fused,
-        seal_fused_jnp,
-    )
-
-    key = bytes(range(32))
-    kp, tables = gcm_key_setup(key)
-    kp_flat = kp.reshape(-1, 1)
-    w = SEAL_TILE_W
-    rng = np.random.default_rng(0)
-    # 32-aligned lo (every real call site guarantees it), random 24-bit
-    # hi extension
-    lohi = jnp.stack([jnp.arange(w, dtype=jnp.uint32) * 32,
-                      jnp.asarray(rng.integers(0, 1 << 24, w,
-                                               dtype=np.uint32))])
-    ghm = jnp.asarray(rng.integers(0, 2**32, (1, w), dtype=np.uint32))
-    j0 = rng.integers(0, 256, 16, dtype=np.uint8)
-    j0c = jnp.asarray((((j0[:, None] >> np.arange(8)) & 1).T
-                       .reshape(128, 1).astype(np.uint32) * 0xFFFFFFFF)
-                      .astype(np.uint32))
-    ptw = jnp.asarray(rng.integers(0, 2**32, (w, 128), dtype=np.uint32))
-    w1t = jnp.transpose(tables[0]).astype(jnp.int8)
-
-    ctw_k, s1_k = seal_fused(kp_flat, j0c, lohi, ghm, w1t, ptw)
-    ctw_j, s1_j = seal_fused_jnp(kp_flat, j0c, lohi, ghm, w1t, ptw)
-    assert np.array_equal(np.asarray(ctw_k), np.asarray(ctw_j))
-    assert np.array_equal(np.asarray(s1_k), np.asarray(s1_j))
-
-
-def test_xex_kernel_interpret_matches_jnp_twin():
-    """xex_fused (XTS body with in-kernel alpha^jj offset expansion) vs
-    its jnp twin, plus the twin vs a per-block doubling oracle."""
-    from micro_aes_tpu.core.bitslice import key_planes
-    from micro_aes_tpu.core.cipher import encrypt_blocks
-    from micro_aes_tpu.core.keyschedule import expand_key
-    from micro_aes_tpu.ops.gf128 import double_le
-    from micro_aes_tpu.ops.pallas_seal import (
-        SEAL_TILE_W,
+def test_xex_matches_doubling_oracle():
+    """xex_fused_jnp (XTS body with the alpha^jj offsets expanded from
+    one base per stream row) vs a per-block doubling oracle, both
+    directions."""
+    from micro_aes.core.bitslice import key_planes
+    from micro_aes.core.cipher import decrypt_blocks, encrypt_blocks
+    from micro_aes.core.keyschedule import expand_key
+    from micro_aes.ops.gf128 import double_le
+    from micro_aes.ops.stream import (
         bytes_to_stream,
         stream_to_bytes,
-        xex_fused,
         xex_fused_jnp,
     )
 
     rng = np.random.default_rng(3)
     key = bytes(range(16))
+    rk = jnp.asarray(expand_key(key))
     kp = jnp.asarray(key_planes(expand_key(key)).reshape(-1, 1))
-
-    # twin vs oracle on a small W (oracle doubles serially per lane)
-    w_small, n_small = 8, 8 * 32
-    bases = rng.integers(0, 256, (w_small, 16), dtype=np.uint8)
-    data = rng.integers(0, 256, (n_small, 16), dtype=np.uint8)
-    offs = np.zeros((n_small, 16), np.uint8)
-    for w in range(w_small):
-        t = jnp.asarray(bases[w])
+    w, n = 8, 8 * 32
+    bases = rng.integers(0, 256, (w, 16), dtype=np.uint8)
+    data = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    offs = np.zeros((n, 16), np.uint8)
+    for row in range(w):
+        t = jnp.asarray(bases[row])
         for jj in range(32):
-            offs[32 * w + jj] = np.asarray(t)
+            offs[32 * row + jj] = np.asarray(t)
             t = double_le(t)
-    expect = np.asarray(encrypt_blocks(
-        jnp.asarray(expand_key(key)), jnp.asarray(data ^ offs))) ^ offs
     basew = jnp.asarray(np.broadcast_to(
-        bases.view(np.uint32)[:, None, :], (w_small, 32, 4))
-        .reshape(w_small, 128).copy())
-    ptw = bytes_to_stream(jnp.asarray(data), 0, w_small)
-    got = np.asarray(stream_to_bytes(
-        xex_fused_jnp(kp, basew, ptw), 0, n_small))
-    assert np.array_equal(got, expect)
-
-    # kernel (interpret mode) vs twin at one full tile, both directions
-    w = SEAL_TILE_W
-    basew = jnp.asarray(np.broadcast_to(
-        rng.integers(0, 256, (w, 16), dtype=np.uint8).view(np.uint32)
-        [:, None, :], (w, 32, 4)).reshape(w, 128).copy())
-    ptw = jnp.asarray(rng.integers(0, 2**32, (w, 128), dtype=np.uint32))
-    for dec in (False, True):
-        k = np.asarray(xex_fused(kp, basew, ptw, decrypt=dec))
-        j = np.asarray(xex_fused_jnp(kp, basew, ptw, decrypt=dec))
-        assert np.array_equal(k, j), f"decrypt={dec}"
+        bases.view(np.uint32)[:, None, :], (w, 32, 4)).reshape(w, 128).copy())
+    ptw = bytes_to_stream(jnp.asarray(data), 0, w)
+    for dec, cipher in ((False, encrypt_blocks), (True, decrypt_blocks)):
+        expect = np.asarray(cipher(rk, jnp.asarray(data ^ offs))) ^ offs
+        got = np.asarray(stream_to_bytes(
+            xex_fused_jnp(kp, basew, ptw, decrypt=dec), 0, n))
+        assert np.array_equal(got, expect), f"decrypt={dec}"
 
 
 @pytest.mark.quick
-def test_ghash1_kernel_interpret_matches_jnp_twin():
-    """ghash1_fused (MAC-only level-1 kernel: GCM-SIV POLYVAL pass) vs
-    its jnp twin on one tile with a random validity mask."""
-    from micro_aes_tpu.ops.pallas_seal import (
-        SEAL_TILE_W,
-        ghash1_fused,
+def test_ghash1_stream_bits_match_planes():
+    """The level-1 GHASH/POLYVAL partials from direct word-to-bit
+    expansion (ghash1_fused_jnp, the path after the GPU kernel) equal
+    the ones folded from bit planes (seal_fused_jnp's own path)."""
+    from micro_aes.core.bitslice import words_to_planes
+    from micro_aes.ops.ghash_bulk import planes_to_bits_i8
+    from micro_aes.ops.stream import (
+        _ghash_level1,
+        _stream_to_kwords,
         ghash1_fused_jnp,
+        stream_bits_i8,
     )
 
     rng = np.random.default_rng(4)
-    key = bytes(range(32))
-    _, tables = gcm_key_setup(key)
+    _, tables = gcm_key_setup(bytes(range(32)))
     w1t = jnp.transpose(tables[0]).astype(jnp.int8)
-    w = SEAL_TILE_W
+    w = 24
     ghm = jnp.asarray(rng.integers(0, 2**32, (1, w), dtype=np.uint32))
     ptw = jnp.asarray(rng.integers(0, 2**32, (w, 128), dtype=np.uint32))
-    s1_k = np.asarray(ghash1_fused(ghm, w1t, ptw))
-    s1_j = np.asarray(ghash1_fused_jnp(ghm, w1t, ptw))
-    assert np.array_equal(s1_k, s1_j)
+    planes = words_to_planes(_stream_to_kwords(ptw))
+    assert np.array_equal(np.asarray(stream_bits_i8(ptw)),
+                          np.asarray(planes_to_bits_i8(planes)))
+    assert np.array_equal(
+        np.asarray(ghash1_fused_jnp(ghm, w1t, ptw)),
+        np.asarray(_ghash_level1(planes_to_bits_i8(planes), ghm, w1t)))
 
 
-def test_ctr_kernel_interpret_matches_jnp_twin():
-    """ctr_fused now derives counters in the WORD domain (iota +
-    byteswap, ~35% faster on hardware) while the jnp twin keeps the
-    plane-domain derivation — the two must agree bit-exactly, including
-    the byte-9..11 hi extension."""
-    from micro_aes_tpu.ops.pallas_seal import (
-        SEAL_TILE_W,
-        ctr_fused,
-        ctr_fused_jnp,
-    )
+@pytest.mark.parametrize("open_direction", [False, True])
+def test_ctr_kernel_interpret_matches_jnp_twin(open_direction, monkeypatch):
+    """The seal through the keystream kernel (interpret mode) equals the
+    XLA engine: out words, E(J0) and the level-1..2 GHASH partial, for
+    seal and open, on a ragged stream width (the wrapper pads to the
+    kernel tile) with a 24-bit counter extension."""
+    import functools
 
-    rng = np.random.default_rng(6)
-    key = bytes(range(32))
-    kp, _ = gcm_key_setup(key)
-    kp_flat = kp.reshape(-1, 1)
-    w = SEAL_TILE_W
-    j0 = rng.integers(0, 256, 16, dtype=np.uint8)
-    j0c = jnp.asarray((((j0[:, None] >> np.arange(8)) & 1).T
-                       .reshape(128, 1).astype(np.uint32) * 0xFFFFFFFF)
-                      .astype(np.uint32))
-    j0w = jnp.asarray(np.tile(j0.view(np.uint32), 32)[None, :])
-    # 32-aligned lo spanning a wrap, random 24-bit hi
-    lohi = jnp.stack([(jnp.arange(w, dtype=jnp.uint32) * 32
-                       + jnp.uint32(0xFFFFF000)),
-                      jnp.asarray(rng.integers(0, 1 << 24, w,
-                                               dtype=np.uint32))])
-    ptw = jnp.asarray(rng.integers(0, 2**32, (w, 128), dtype=np.uint32))
-    k = np.asarray(ctr_fused(kp_flat, j0w, lohi, ptw))
-    j = np.asarray(ctr_fused_jnp(kp_flat, j0c, lohi, ptw))
-    assert np.array_equal(k, j)
-
-
-def test_transposed_seal_kernels_match_committed():
-    """Transposed-stream kernel variants (VERDICT r4 item 4: [128, W]
-    resident, no per-tile VMEM transposes) vs the committed w-major
-    kernels — bit-equality for the full seal, the GHASH level-1 pass,
-    and the SIV CTR pass (interpret mode off-TPU)."""
-    from micro_aes_tpu.ops.pallas_seal import (
-        SEAL_TILE_W,
-        ghash1_fused,
-        ghash1_fused_t,
-        seal_fused,
-        seal_fused_t,
-        siv_ctrw_fused,
-        siv_ctrw_fused_t,
-    )
+    from micro_aes.modes.seal import fused_seal_stream, seal_stream_words
+    from micro_aes.ops import ctr_kernel
 
     key = bytes(range(32))
     kp, tables = gcm_key_setup(key)
-    kp_flat = kp.reshape(-1, 1)
-    w = SEAL_TILE_W
-    rng = np.random.default_rng(11)
-    lohi = jnp.stack([jnp.arange(w, dtype=jnp.uint32) * 32,
-                      jnp.asarray(rng.integers(0, 1 << 24, w,
-                                               dtype=np.uint32))])
-    ghm = jnp.asarray(rng.integers(0, 2**32, (1, w), dtype=np.uint32))
+    n = 40 * 32 - 2
+    w = seal_stream_words(n)
+    assert w % ctr_kernel.TILE
+    rng = np.random.default_rng(6)
     j0 = rng.integers(0, 256, 16, dtype=np.uint8)
-    j0c = jnp.asarray((((j0[:, None] >> np.arange(8)) & 1).T
-                       .reshape(128, 1).astype(np.uint32) * 0xFFFFFFFF)
-                      .astype(np.uint32))
+    j0[12:] = (0, 0, 0, 1)
     ptw = jnp.asarray(rng.integers(0, 2**32, (w, 128), dtype=np.uint32))
-    w1t = jnp.transpose(tables[0]).astype(jnp.int8)
-
-    ct_a, s1_a = seal_fused(kp_flat, j0c, lohi, ghm, w1t, ptw)
-    ct_b, s1_b = seal_fused_t(kp_flat, j0c, lohi, ghm, w1t,
-                              jnp.transpose(ptw))
-    assert np.array_equal(np.asarray(jnp.transpose(ct_b)),
-                          np.asarray(ct_a))
-    assert np.array_equal(np.asarray(s1_b), np.asarray(s1_a))
-
-    s1_c = ghash1_fused(ghm, w1t, ptw)
-    s1_d = ghash1_fused_t(ghm, w1t, jnp.transpose(ptw))
-    assert np.array_equal(np.asarray(s1_d), np.asarray(s1_c))
-
-    basew = jnp.asarray(np.tile(rng.integers(0, 2**32, 4,
-                                             dtype=np.uint32), 32)[None, :])
-    y_a = siv_ctrw_fused(kp_flat, basew, ptw)
-    y_b = siv_ctrw_fused_t(kp_flat, basew, jnp.transpose(ptw))
-    assert np.array_equal(np.asarray(jnp.transpose(y_b)), np.asarray(y_a))
+    monkeypatch.setattr(ctr_kernel, "ctr_fused_kernel", functools.partial(
+        ctr_kernel.ctr_fused_kernel, interpret=True))
+    got = fused_seal_stream(kp, tables, jnp.asarray(j0), ptw, n,
+                            open_direction, kernel=True)
+    want = fused_seal_stream(kp, tables, jnp.asarray(j0), ptw, n,
+                             open_direction, kernel=False)
+    for g, x in zip(got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(x))

@@ -3,9 +3,9 @@ agreement on edge lengths/parameters the official vectors don't cover."""
 import numpy as np
 import pytest
 
-import micro_aes_tpu as aes
-from micro_aes_tpu import native
-from micro_aes_tpu.modes.bulk import gcm_encrypt_batch
+import micro_aes as aes
+from micro_aes import native
+from micro_aes.modes.bulk import gcm_encrypt_batch
 
 RNG = np.random.default_rng(0xAE5)
 
@@ -92,9 +92,9 @@ def test_cross_impl_cipher_fuzz():
     """C++ oracle, jnp table path and bitsliced path agree on random data."""
     import jax.numpy as jnp
 
-    from micro_aes_tpu.core.bitslice import encrypt_blocks_bitsliced, key_planes
-    from micro_aes_tpu.core.cipher import encrypt_blocks
-    from micro_aes_tpu.core.keyschedule import expand_key
+    from micro_aes.core.bitslice import encrypt_blocks_bitsliced, key_planes
+    from micro_aes.core.cipher import encrypt_blocks
+    from micro_aes.core.keyschedule import expand_key
 
     for _ in range(3):
         klen = [16, 24, 32][int(RNG.integers(0, 3))]
@@ -110,7 +110,7 @@ def test_cross_impl_cipher_fuzz():
 
 
 def test_fpe_roundtrip_alphabets():
-    from micro_aes_tpu.fpe import ALPHABETS, fpe_decrypt, fpe_encrypt
+    from micro_aes.fpe import ALPHABETS, fpe_decrypt, fpe_encrypt
 
     key = _rand(16)
     for name in ("digits", "lower", "base64", "printable", "greek"):

@@ -1,58 +1,79 @@
-"""Segmented value-chain multi-key GCM engine (modes/seal_batch
-gcm_*_batch_chain + ops/pallas_chain.gcm_chain_fused): differential
-equality against the scalar GCM through the interpret-mode kernel,
-driven by forcing the gate (MICRO_AES_GCM_CHAIN=1).
-
-Exercises the segment machinery directly: right-aligned virtual lanes
-(leading zeros fold free), uniform-exponent source masking, the AAD-fold
-injection at each message's first data position, the fused power-table
-combine, empty messages whose AAD enters via the length multiply, and
-batch padding for 32-lane alignment."""
+"""Value-chain multi-key GCM (parallel/batch.gcm_chain_sharded_fn: per
+block G <- (G ^ C) * H, no per-key tables) on the virtual CPU mesh,
+against the per-message GCM path: ragged whole-block lengths, AAD folded
+in as the chain's initial value, AES-128 and AES-256, dp = 2 and 4."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from micro_aes.modes.bulk import _enc_vmap, stack_round_keys
+from micro_aes.modes.gcm import gcm_encrypt
+from micro_aes.ops.mac import ghash_fold_batch
+from micro_aes.parallel.batch import gcm_chain_sharded_fn
+from micro_aes.parallel.mesh import make_mesh
+from micro_aes.utils.bytesio import BLOCK
 
-@pytest.fixture(autouse=True)
-def _force_chain(monkeypatch):
-    monkeypatch.setenv("MICRO_AES_GCM_CHAIN", "1")
 
-
-def _drive(monkeypatch, lanes_target, lens, klen, seed):
-    import micro_aes_tpu.modes.seal_batch as sb
-    from micro_aes_tpu.modes.gcm import gcm_encrypt
-
-    monkeypatch.setattr(sb, "_CHAIN_LANES", lanes_target)
+def _drive(dp: int, klen: int, ns: list[int], aad_lens: list[int],
+           seed: int):
     rng = np.random.default_rng(seed)
-    B = len(lens)
+    b, nb = len(ns), max(ns)
     keys = [rng.integers(0, 256, klen, dtype=np.uint8).tobytes()
-            for _ in range(B)]
+            for _ in range(b)]
     nonces = [rng.integers(0, 256, 12, dtype=np.uint8).tobytes()
-              for _ in range(B)]
-    aads = [rng.integers(0, 256, (7 * i) % 29, dtype=np.uint8).tobytes()
-            for i in range(B)]
-    pts = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in lens]
-    got = sb.gcm_seal_batch(keys, nonces, aads, pts)
-    for i in range(B):
-        assert got[i] == gcm_encrypt(keys[i], nonces[i], aads[i], pts[i]), \
-            f"chain seal mismatch at len={lens[i]}"
-    backs = sb.gcm_open_batch(keys, nonces, aads, got)
-    assert backs == pts
-    bad = [got[0][:-1] + bytes([got[0][-1] ^ 1])] + list(got[1:])
-    backs2 = sb.gcm_open_batch(keys, nonces, aads, bad)
-    assert backs2[0] is None and backs2[1:] == pts[1:]
+              for _ in range(b)]
+    aads = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            for n in aad_lens]
+    pts = [rng.integers(0, 256, BLOCK * n, dtype=np.uint8).tobytes()
+           for n in ns]
+
+    rksj = jnp.asarray(stack_round_keys(keys))
+    zero_j0 = np.zeros((b, 2, BLOCK), np.uint8)
+    for i in range(b):
+        zero_j0[i, 1, :12] = np.frombuffer(nonces[i], np.uint8)
+        zero_j0[i, 1, 15] = 1
+    enc2 = np.asarray(_enc_vmap(rksj, jnp.asarray(zero_j0)))
+    h, ej0 = enc2[:, 0], enc2[:, 1]
+    c0 = zero_j0[:, 1].copy()
+    c0[:, 15] = 2
+    na = max(1, -(-max(aad_lens) // BLOCK))
+    blocks = np.zeros((b, nb, BLOCK), np.uint8)
+    aadb = np.zeros((b, na, BLOCK), np.uint8)
+    nva = np.zeros(b, np.int32)
+    lenb = np.zeros((b, BLOCK), np.uint8)
+    for i in range(b):
+        blocks[i, : ns[i]] = np.frombuffer(pts[i], np.uint8).reshape(
+            ns[i], BLOCK)
+        aadb[i].reshape(-1)[: len(aads[i])] = np.frombuffer(aads[i],
+                                                            np.uint8)
+        nva[i] = -(-len(aads[i]) // BLOCK)
+        lenb[i, :8] = np.frombuffer((len(aads[i]) * 8).to_bytes(8, "big"),
+                                    np.uint8)
+        lenb[i, 8:] = np.frombuffer((ns[i] * BLOCK * 8).to_bytes(8, "big"),
+                                    np.uint8)
+    init = ghash_fold_batch(jnp.asarray(h), jnp.zeros((b, BLOCK), jnp.uint8),
+                            jnp.asarray(aadb), jnp.asarray(nva))
+
+    fn = gcm_chain_sharded_fn(make_mesh(dp, 1))
+    out, tags = fn(rksj, jnp.asarray(h), jnp.asarray(ej0), jnp.asarray(c0),
+                   init, jnp.asarray(blocks),
+                   jnp.asarray(np.array(ns, np.int32)), jnp.asarray(lenb))
+    out, tags = np.asarray(out), np.asarray(tags)
+    for i in range(b):
+        got = out[i, : ns[i]].tobytes() + tags[i].tobytes()
+        assert got == gcm_encrypt(keys[i], nonces[i], aads[i], pts[i]), \
+            f"value-chain GCM mismatch at tenant {i} (n={ns[i]})"
 
 
-def test_chain_unsegmented(monkeypatch):
-    """S = nb (one block per segment) and the no-split S=1 regime."""
-    _drive(monkeypatch, 4096, [0, 16, 48, 160, 320], 16, 7)
-    _drive(monkeypatch, 1, [64, 32], 16, 8)
+def test_gcm_chain_sharded_ragged_lengths():
+    _drive(2, 16, [1, 7, 3, 12], [0, 5, 16, 33], seed=7)
 
 
-def test_chain_segmented_l_gt_1(monkeypatch):
-    """L > 1 segmentation: leading-zero lanes, mid-segment injection."""
-    _drive(monkeypatch, 8, [96, 64, 16, 112], 16, 9)
-    _drive(monkeypatch, 8, [0, 128, 0, 64, 16], 16, 10)
+@pytest.mark.parametrize("dp", [2, 4])
+def test_gcm_chain_sharded_aad_classes(dp):
+    _drive(dp, 16, [4, 4, 2, 9, 1, 6, 3, 5], [0, 1, 15, 16, 17, 31, 32, 70],
+           seed=9 + dp)
 
 
-def test_chain_aes256(monkeypatch):
-    _drive(monkeypatch, 8, [80, 80, 80], 32, 11)
+def test_gcm_chain_sharded_aes256():
+    _drive(2, 32, [5, 5, 8, 2], [12, 0, 40, 3], seed=11)

@@ -2,15 +2,15 @@
 import numpy as np
 import pytest
 
-from micro_aes_tpu.errors import AuthenticationError, DataLengthError
-from micro_aes_tpu.modes import (
+from micro_aes.errors import AuthenticationError, DataLengthError
+from micro_aes.modes import (
     ccm_decrypt, ccm_encrypt, cmac, eax_decrypt, eax_encrypt,
     eaxp_decrypt, eaxp_encrypt, gcm_decrypt, gcm_encrypt,
     gcm_siv_decrypt, gcm_siv_encrypt, key_unwrap, key_wrap,
     ocb_decrypt, ocb_encrypt, poly1305_aes, siv_decrypt, siv_encrypt,
 )
-from micro_aes_tpu.testing import kat
-from micro_aes_tpu.utils.bytesio import hex2bytes
+from micro_aes.testing import kat
+from micro_aes.utils.bytesio import hex2bytes
 
 KEY128 = kat.CIPHER_KEY[:16]
 KEY256 = kat.CIPHER_KEY

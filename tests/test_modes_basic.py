@@ -2,15 +2,15 @@
 import numpy as np
 import pytest
 
-from micro_aes_tpu.errors import DataLengthError, DecryptionError
-from micro_aes_tpu.modes import common
-from micro_aes_tpu.modes.cbc import cbc_decrypt, cbc_encrypt
-from micro_aes_tpu.modes.cfb import cfb_decrypt, cfb_encrypt
-from micro_aes_tpu.modes.ctr import ctr_decrypt, ctr_encrypt
-from micro_aes_tpu.modes.ecb import ecb_decrypt, ecb_encrypt
-from micro_aes_tpu.modes.ofb import ofb_decrypt, ofb_encrypt
-from micro_aes_tpu.modes.xts import xts_decrypt, xts_encrypt
-from micro_aes_tpu.testing import kat
+from micro_aes.errors import DataLengthError, DecryptionError
+from micro_aes.modes import common
+from micro_aes.modes.cbc import cbc_decrypt, cbc_encrypt
+from micro_aes.modes.cfb import cfb_decrypt, cfb_encrypt
+from micro_aes.modes.ctr import ctr_decrypt, ctr_encrypt
+from micro_aes.modes.ecb import ecb_decrypt, ecb_encrypt
+from micro_aes.modes.ofb import ofb_decrypt, ofb_encrypt
+from micro_aes.modes.xts import xts_decrypt, xts_encrypt
+from micro_aes.testing import kat
 
 pytestmark = pytest.mark.quick
 

@@ -1,23 +1,22 @@
-"""parallel/multihost helpers exercised on the virtual 8-device mesh
-(VERDICT r1: multihost.py must not be dead code)."""
+"""parallel/multihost helpers exercised on the virtual 8-device mesh."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from micro_aes_tpu.modes.common import enc_blocks_np
-from micro_aes_tpu.modes.gcm import gcm_encrypt
-from micro_aes_tpu.modes.seal import gcm_key_setup
-from micro_aes_tpu.parallel.multihost import (
+from micro_aes.modes.common import enc_blocks_np
+from micro_aes.modes.gcm import gcm_encrypt
+from micro_aes.modes.seal import gcm_key_setup
+from micro_aes.parallel.multihost import (
     global_mesh,
     host_local_batch,
     init_distributed,
 )
-from micro_aes_tpu.parallel.sharded import (
+from micro_aes.parallel.sharded import (
     gcm_sharded_fused_fn,
     shard_adjust_matrices_fused,
     sharded_aad_args,
 )
-from micro_aes_tpu.utils.bytesio import BLOCK
+from micro_aes.utils.bytesio import BLOCK
 
 
 def test_init_distributed_is_idempotent_single_process():

@@ -3,11 +3,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from micro_aes_tpu.core.bitslice import encrypt_blocks_bitsliced, key_planes
-from micro_aes_tpu.core.cipher import encrypt_blocks
-from micro_aes_tpu.core.keyschedule import expand_key
-from micro_aes_tpu import native
-from micro_aes_tpu.testing import kat
+from micro_aes.core.bitslice import encrypt_blocks_bitsliced, key_planes
+from micro_aes.core.cipher import encrypt_blocks
+from micro_aes.core.keyschedule import expand_key
+from micro_aes import native
+from micro_aes.testing import kat
 
 pytestmark = pytest.mark.quick
 

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from micro_aes_tpu.modes.gcm import gcm_encrypt
-from micro_aes_tpu.modes.seal import gcm_key_setup, gcm_seal
-from micro_aes_tpu.modes.common import enc_blocks_np
-from micro_aes_tpu.parallel.mesh import make_mesh
-from micro_aes_tpu.parallel.sharded import gcm_seal_sharded_fn, shard_adjust_matrices
-from micro_aes_tpu.utils.bytesio import BLOCK
+from micro_aes.modes.gcm import gcm_encrypt
+from micro_aes.modes.seal import gcm_key_setup, gcm_seal
+from micro_aes.modes.common import enc_blocks_np
+from micro_aes.parallel.mesh import make_mesh
+from micro_aes.parallel.sharded import gcm_seal_sharded_fn, shard_adjust_matrices
+from micro_aes.utils.bytesio import BLOCK
 
 
 def _j0(nonce: bytes) -> np.ndarray:
@@ -61,10 +61,10 @@ def test_seal_batch_sharded_matches_unsharded():
     unsharded core, and == the per-message GCM oracle."""
     import jax.numpy as jnp
 
-    from micro_aes_tpu.modes.gcm import gcm_encrypt
-    from micro_aes_tpu.modes.seal_batch import _prep, _seal_batch_core
-    from micro_aes_tpu.parallel.batch import seal_batch_sharded_fn
-    from micro_aes_tpu.parallel.mesh import make_mesh
+    from micro_aes.modes.gcm import gcm_encrypt
+    from micro_aes.modes.seal_batch import _prep, _seal_batch_core
+    from micro_aes.parallel.batch import seal_batch_sharded_fn
+    from micro_aes.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(61)
     B = 8
@@ -99,9 +99,9 @@ def test_seal_batch_sharded_matches_unsharded():
 def test_xts_sectors_sharded_matches_per_sector(dp):
     """dp-sharded disk-sector XTS == the per-sector conformance path
     (zero collectives; sectors shard with their tweaks)."""
-    from micro_aes_tpu.modes.xts import xts_encrypt
-    from micro_aes_tpu.parallel.batch import xts_sectors_sharded_fn
-    from micro_aes_tpu.parallel.mesh import make_mesh
+    from micro_aes.modes.xts import xts_encrypt
+    from micro_aes.parallel.batch import xts_sectors_sharded_fn
+    from micro_aes.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(63)
     sector = 512  # 32 blocks -> r_per_sector = 1
@@ -110,9 +110,9 @@ def test_xts_sectors_sharded_matches_per_sector(dp):
     data = rng.integers(0, 256, s * sector, dtype=np.uint8).tobytes()
     ids = list(range(1000, 1000 + s))
 
-    from micro_aes_tpu.core.bitslice import key_planes
-    from micro_aes_tpu.core.keyschedule import expand_key
-    from micro_aes_tpu.modes.seal import host_stream, host_unstream
+    from micro_aes.core.bitslice import key_planes
+    from micro_aes.core.keyschedule import expand_key
+    from micro_aes.modes.seal import host_stream, host_unstream
 
     kp1 = jnp.asarray(key_planes(expand_key(keys[:16])))
     kp2 = jnp.asarray(key_planes(expand_key(keys[16:])))
@@ -143,15 +143,15 @@ def test_chain_sharded_matches_unsharded():
     """Lane-packed CBC/CFB/OFB chains over a dp mesh == unsharded."""
     import jax.numpy as jnp
 
-    from micro_aes_tpu.core.bitslice import key_planes_packed
-    from micro_aes_tpu.modes._scan import (
+    from micro_aes.core.bitslice import key_planes_packed
+    from micro_aes.modes._scan import (
         cbc_encrypt_scan_packed,
         cfb_encrypt_scan_packed,
         ofb_keystream_scan_packed,
     )
-    from micro_aes_tpu.modes.bulk import stack_round_keys
-    from micro_aes_tpu.parallel.batch import chain_sharded_fn
-    from micro_aes_tpu.parallel.mesh import make_mesh
+    from micro_aes.modes.bulk import stack_round_keys
+    from micro_aes.parallel.batch import chain_sharded_fn
+    from micro_aes.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(62)
     B, nb = 64, 5  # dp=2 -> 32 lanes (one word) per device

@@ -8,19 +8,19 @@ mirroring the reference's two-tier main.c (smoke) / testvectors (full)
 split (SURVEY §4)."""
 import pytest
 
-from micro_aes_tpu.errors import AuthenticationError
-from micro_aes_tpu.modes import (
+from micro_aes.errors import AuthenticationError
+from micro_aes.modes import (
     ccm_decrypt, ccm_encrypt, eax_decrypt, eax_encrypt,
     gcm_siv_decrypt, gcm_siv_encrypt, ocb_decrypt, ocb_encrypt,
     poly1305_aes,
 )
-from micro_aes_tpu.fpe import fpe_decrypt, fpe_encrypt
-from micro_aes_tpu.modes.cmac import cmac
-from micro_aes_tpu.modes.gcm import gcm_decrypt, gcm_encrypt
-from micro_aes_tpu.modes.xts import xts_decrypt, xts_encrypt
-from micro_aes_tpu.testing import rsp
+from micro_aes.fpe import fpe_decrypt, fpe_encrypt
+from micro_aes.modes.cmac import cmac
+from micro_aes.modes.gcm import gcm_decrypt, gcm_encrypt
+from micro_aes.modes.xts import xts_decrypt, xts_encrypt
+from micro_aes.testing import rsp
 
-pytestmark = pytest.mark.quick
+pytestmark = [pytest.mark.quick, pytest.mark.usefixtures("vector_corpus")]
 
 
 def _first(recs, want_pt="PT"):

@@ -1,10 +1,10 @@
-"""Multi-key fused GCM (modes/seal_batch + ops/pallas_multikey) vs the
-per-message conformance-validated path, plus kernel-vs-twin equality."""
+"""Multi-key fused GCM (modes/seal_batch + ops/stream's multi-key engine)
+vs the per-message conformance-validated path."""
 import jax.numpy as jnp
 import numpy as np
 
-from micro_aes_tpu.modes.gcm import gcm_encrypt
-from micro_aes_tpu.modes.seal_batch import gcm_open_batch, gcm_seal_batch
+from micro_aes.modes.gcm import gcm_encrypt
+from micro_aes.modes.seal_batch import gcm_open_batch, gcm_seal_batch
 
 
 def test_seal_batch_mixed_lengths_and_aad():
@@ -71,29 +71,32 @@ def test_seal_batch_fallback_paths():
         assert got[i] == gcm_encrypt(keys[i], nonces[i], b"", pts[i]), i
 
 
-def test_multikey_kernel_interpret_matches_twin():
-    """ctrw_fused_multikey (interpret mode) vs its vmapped jnp twin."""
-    from micro_aes_tpu.core.bitslice import key_planes
-    from micro_aes_tpu.core.keyschedule import expand_key
-    from micro_aes_tpu.ops.pallas_multikey import (
-        ctrw_fused_multikey,
-        ctrw_fused_multikey_jnp,
-        mk_key_stack,
-    )
+def test_multikey_engine_matches_per_key():
+    """ctrw_fused_multikey_jnp (B windows, B keys, one program) equals
+    the single-key engine run on each window with its own key, both
+    directions."""
+    from micro_aes.core.bitslice import key_planes
+    from micro_aes.core.keyschedule import expand_key
+    from micro_aes.ops.stream import ctrw_fused_jnp, ctrw_fused_multikey_jnp
 
     rng = np.random.default_rng(4)
     b, wm = 3, 16
-    kp_stack = mk_key_stack(
-        [jnp.asarray(key_planes(expand_key(
-            bytes(rng.integers(0, 256, 16, dtype=np.uint8)))))
-         for _ in range(b)])
+    kps = [jnp.asarray(key_planes(expand_key(
+        bytes(rng.integers(0, 256, 16, dtype=np.uint8))))) for _ in range(b)]
     ctrw = jnp.asarray(rng.integers(0, 2**32, (b * wm, 128),
                                     dtype=np.uint32))
     ptw = jnp.asarray(rng.integers(0, 2**32, (b * wm, 128),
                                    dtype=np.uint32))
-    k = np.asarray(ctrw_fused_multikey(kp_stack, ctrw, ptw, b))
-    j = np.asarray(ctrw_fused_multikey_jnp(kp_stack, ctrw, ptw, b))
-    assert np.array_equal(k, j)
+    for dec in (False, True):
+        stack = jnp.concatenate([kp.reshape(-1, 1) for kp in kps])
+        got = np.asarray(ctrw_fused_multikey_jnp(stack, ctrw, ptw, b,
+                                                 decrypt=dec))
+        for i in range(b):
+            rows = slice(i * wm, (i + 1) * wm)
+            want = np.asarray(ctrw_fused_jnp(kps[i].reshape(-1, 1),
+                                             ctrw[rows], ptw[rows],
+                                             decrypt=dec))
+            assert np.array_equal(got[rows], want), (dec, i)
 
 
 def test_seal_batch_edge_cases():
@@ -109,38 +112,31 @@ def test_seal_batch_edge_cases():
 
 
 def test_window_and_tile_contract():
-    """The window rounds to the 8-row sublane tile (NOT a full Pallas
-    tile — a 513-row window must not balloon to 1024, round-4 fix) and
-    the kernel's divisor tile always divides it."""
-    from micro_aes_tpu.ops.pallas_multikey import mk_tile, mk_window_words
+    """The per-message window is the block count in 32-block rows,
+    rounded up to a multiple of 8 rows and no further: a 513-row window
+    (256 KiB message) must not balloon to a power of two."""
+    from micro_aes.ops.stream import mk_window_words
 
     for need in (1, 31, 32, 33, 255, 256, 1024, 1027, 16384, 16387,
                  17149, 536 * 32):
         wm = mk_window_words(need)
         assert wm % 8 == 0 and 32 * wm >= need
-        assert wm - (-(-need // 32)) < 64  # sublane + tile-floor pad only
-        t = mk_tile(wm)
-        assert t % 8 == 0 and wm % t == 0 and t <= 512
-        if wm >= 64:  # ADVICE r4: no silent tile=8 perf cliff
-            assert t >= 64, (need, wm, t)
-    # the 256 KB serving shape: 513-row window stays ~513, not 1024
+        assert wm - (-(-need // 32)) < 8
     assert mk_window_words(16387) == 520
-    assert mk_tile(520) == 104
-    # the unlucky 536-row shape pads past its divisor-free zone
-    assert mk_tile(mk_window_words(536 * 32)) >= 64
+    assert mk_window_words(536 * 32) == 536
 
 
 def test_warm_tables_match_cold_and_purge():
-    """reuse_tables=True (memoized per-key-set GHASH tables, VERDICT r4
-    item 3) must be bit-identical to the cold in-dispatch derivation,
+    """reuse_tables=True (memoized per-key-set GHASH tables) must be
+    bit-identical to the cold in-dispatch derivation,
     hit its cache on the second call, and register with the purge
     audit surface."""
-    from micro_aes_tpu.modes.seal_batch import (
+    from micro_aes.modes.seal_batch import (
         _tables_cached,
         gcm_open_batch,
         gcm_seal_batch,
     )
-    from micro_aes_tpu.utils.keycache import registered_key_caches
+    from micro_aes.utils.keycache import registered_key_caches
 
     rng = np.random.default_rng(57)
     B = 32

@@ -1,12 +1,11 @@
-"""Bulk GCM-SIV seal/open — CPU fallback path parity (the fused TPU path
-was verified bit-exact against this same conformance-validated oracle on
-real hardware; see modes/siv_seal.py)."""
+"""Bulk GCM-SIV seal/open entry points (modes/siv_seal.py) against the
+general per-message path, plus tag rejection."""
 import numpy as np
 import pytest
 
-from micro_aes_tpu.errors import AuthenticationError
-from micro_aes_tpu.modes.gcm_siv import gcm_siv_encrypt
-from micro_aes_tpu.modes.siv_seal import gcm_siv_open, gcm_siv_seal
+from micro_aes.errors import AuthenticationError
+from micro_aes.modes.gcm_siv import gcm_siv_encrypt
+from micro_aes.modes.siv_seal import gcm_siv_open, gcm_siv_seal
 
 
 def test_siv_seal_matches_reference_path():
@@ -21,58 +20,3 @@ def test_siv_seal_matches_reference_path():
     bad[5] ^= 4
     with pytest.raises(AuthenticationError):
         gcm_siv_open(key, nonce, bytes(bad))
-
-
-def test_siv_stream_paths_match_oracle_off_tpu():
-    """Drive the fused stream machinery DIRECTLY (the *_auto dispatchers
-    run the jnp twins off-TPU, same jaxpr shape the kernels compute):
-    seal = POLYVAL pass + in-kernel-counter CTR pass; open = the single
-    fused decrypt+POLYVAL pass with the M^1 len-block correction."""
-    import jax.numpy as jnp
-
-    from micro_aes_tpu.modes.seal import host_stream, host_unstream
-    from micro_aes_tpu.modes.siv_seal import (
-        _len_block_le,
-        _siv_key_setup,
-        _siv_open_jit,
-        _polyval_stream_jit,
-        _siv_ctr_jit,
-        _stream_words,
-        _tag_from_pv,
-    )
-    from micro_aes_tpu.utils.bytesio import BLOCK
-
-    rng = np.random.default_rng(77)
-    key = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
-    nonce = bytes(rng.integers(0, 256, 12, dtype=np.uint8))
-    for nblocks in (1, 31, 32, 65):
-        pt = bytes(rng.integers(0, 256, 16 * nblocks, dtype=np.uint8))
-        expect = gcm_siv_encrypt(key, nonce, b"", pt)
-
-        msg_key, kp, tables, w1t = _siv_key_setup(key, nonce)
-        n = nblocks
-        w = _stream_words(n)
-        front = 32 * w - (n + 1)
-        buf = host_stream(pt, front, w)
-        buf.reshape(-1)[-4:] = _len_block_le(n).view(np.uint32)
-        stream = jnp.asarray(buf)
-        pv = np.asarray(_polyval_stream_jit(tables, w1t, stream, n))
-        tag = _tag_from_pv(msg_key, nonce, pv)
-        base = tag.copy()
-        base[15] |= 0x80
-        ctw = _siv_ctr_jit(kp, jnp.asarray(base.copy().view(np.uint32)),
-                           stream, front)
-        got = host_unstream(np.asarray(ctw), front, len(pt)) + bytes(tag)
-        assert got == expect, f"stream seal diverged at n={nblocks}"
-
-        # fused open: one pass, then the len-block exponent correction
-        ct = expect[:-16]
-        rtag = np.frombuffer(expect[-16:], np.uint8)
-        base = rtag.copy()
-        base[15] |= 0x80
-        ptw, pv2 = _siv_open_jit(kp, jnp.asarray(base.copy().view(np.uint32)),
-                                 tables, w1t,
-                                 jnp.asarray(host_stream(ct, front, w)), n)
-        assert bytes(np.asarray(_tag_from_pv(msg_key, nonce,
-                                             np.asarray(pv2)))) == bytes(rtag)
-        assert host_unstream(np.asarray(ptw), front, len(ct)) == pt

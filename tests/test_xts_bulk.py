@@ -1,8 +1,8 @@
 """Bulk XTS sector engine vs the conformance-validated per-sector path."""
 import numpy as np
 
-from micro_aes_tpu.modes.xts import xts_encrypt
-from micro_aes_tpu.modes.xts_bulk import xts_open_sectors, xts_seal_sectors
+from micro_aes.modes.xts import xts_encrypt
+from micro_aes.modes.xts_bulk import xts_open_sectors, xts_seal_sectors
 
 
 def test_xts_sectors_match_reference_path():
